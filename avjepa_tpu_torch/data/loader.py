@@ -1,0 +1,147 @@
+"""Host-side batching without JAX: a sharded index sampler and a threaded
+batch loader over the datasets of ``avjepa_tpu.data``.
+
+Counterpart of ``avjepa_tpu/data/loader.py`` for the serving path. The
+sampler keeps that module's semantics; the number of shards and this
+process's shard are given explicitly (one process drives one GPU). The
+loader decodes samples in a thread pool, retries a failed decode on a
+resampled index, and keeps a bounded queue of batches ahead of the consumer.
+It builds no mask sets (serving needs none).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+class ShardedSampler:
+    """Epoch-shuffled, sharded index sampler (DistributedSampler semantics:
+    equal shards, wrap-around padding, set_epoch reshuffle)."""
+
+    def __init__(
+        self,
+        dataset_len: int,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_shards: int = 1,
+        shard_index: int = 0,
+        drop_last: bool = True,
+    ):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+        self.dataset_len = dataset_len
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        if self.shuffle:
+            order = np.random.default_rng([self.seed, self.epoch]).permutation(self.dataset_len)
+        else:
+            order = np.arange(self.dataset_len)
+        # pad to a multiple of shards (DistributedSampler wrap-around)
+        total = int(np.ceil(self.dataset_len / self.num_shards)) * self.num_shards
+        if total > len(order):
+            order = np.concatenate([order, order[: total - len(order)]])
+        shard = order[self.shard_index :: self.num_shards]
+        if not self.drop_last and len(shard) % self.batch_size:
+            # wrap-pad the final partial batch to full size; np.resize wraps
+            # cyclically, so a shard smaller than half a batch still fills it
+            pad = self.batch_size - len(shard) % self.batch_size
+            shard = np.resize(shard, len(shard) + pad)
+        for i in range(len(shard) // self.batch_size):
+            yield shard[i * self.batch_size : (i + 1) * self.batch_size]
+
+
+def fetch_with_retry(dataset, idx: int):
+    """dataset[idx]; a failed decode is retried (10 tries) on a resampled
+    index, as the JAX loader does (the sample then reports that other index)."""
+    for attempt in range(10):
+        try:
+            return dataset[int(idx)]
+        except Exception:  # noqa: BLE001 - any decode failure resamples
+            idx = np.random.default_rng([int(idx), attempt]).integers(0, len(dataset))
+    raise RuntimeError("persistent decode failure")
+
+
+def collate_av(samples) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
+    """(video [B, T, H, W, 3], audio [B, Hs, Ws, 1] or None, labels [B])."""
+    video = np.stack([s[0] for s in samples])
+    audio = None
+    if samples[0][1] is not None:
+        audio = np.stack([s[1] for s in samples])[..., None]
+    labels = np.asarray([s[2] for s in samples])
+    return video, audio, labels
+
+
+class BatchLoader:
+    """Iterates collated batches, decoding ahead in ``num_workers`` threads
+    with at most ``prefetch`` batches waiting. ``close()`` stops the pool."""
+
+    def __init__(self, dataset, sampler: ShardedSampler, num_workers: int = 4,
+                 prefetch: int = 2):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.prefetch = prefetch
+        self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def _assemble(self, indices: np.ndarray):
+        samples = list(
+            self._pool.map(lambda i: fetch_with_retry(self.dataset, i), indices)
+        )
+        return collate_av(samples)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        error: list = []
+
+        def put_or_stop(item) -> bool:
+            # a plain put would block forever once the consumer stops reading
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for indices in self.sampler:
+                    if stop.is_set() or not put_or_stop(self._assemble(indices)):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+                error.append(e)
+            finally:
+                put_or_stop(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    if error:
+                        raise error[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=10)

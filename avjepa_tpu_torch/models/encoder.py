@@ -1,0 +1,80 @@
+"""The JEPA encoder over a (video, audio) token sequence.
+
+Counterpart of ``avjepa_tpu/models/encoder.py`` in the modes serving uses:
+AV (video tokens, then audio tokens) and video-only (``layout.audio_enabled``
+False), dense, with an optional ``[B, N]`` key mask. The blocks are an
+``nn.ModuleList`` (the JAX package scans one stacked block). Not ported yet:
+``gather_idx`` compaction, image mode and pos-embed interpolation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from avjepa_tpu.layout import TokenLayout
+from avjepa_tpu_torch.models import pos_embed as pe
+from avjepa_tpu_torch.models.modules import LN_EPS, Block, layer_norm
+from avjepa_tpu_torch.models.patch_embed import AVPatchEmbed
+
+
+class Encoder(nn.Module):
+    def __init__(
+        self,
+        layout: TokenLayout,
+        embed_dim: int = 768,
+        depth: int = 12,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        uniform_power: bool = False,
+        dtype: torch.dtype = torch.float32,
+        attn_impl: str = "xla",
+        gelu: str = "exact",
+    ):
+        super().__init__()
+        if layout.num_frames <= 1:
+            raise NotImplementedError("image mode is not ported yet (see ROADMAP.md)")
+        self.layout = layout
+        self.dtype = dtype
+        self.patch_embed = AVPatchEmbed(layout, embed_dim)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl=attn_impl, gelu=gelu)
+            for _ in range(depth)
+        )
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        # fixed sincos tables, recomputed from the layout (not in state dicts)
+        vpe = pe.sincos_3d(embed_dim, layout.h_grid, layout.t_grid,
+                           uniform_power=uniform_power)
+        self.register_buffer("pos_embed_v", torch.from_numpy(vpe).float(),
+                             persistent=False)
+        if layout.audio_enabled:
+            ape = pe.sincos_2d_rect(embed_dim, layout.ha_grid, layout.wa_grid)
+            self.register_buffer("pos_embed_a", torch.from_numpy(ape).float(),
+                                 persistent=False)
+
+    def forward(
+        self,
+        video: torch.Tensor,
+        audio: Optional[torch.Tensor] = None,
+        key_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """video [B, T, H, W, 3]; audio [B, Hs, Ws, 1]; key_mask [B, N] bool
+        or None (every token valid). Returns [B, N, D] in ``self.dtype``;
+        rows at masked positions are finite garbage for callers to mask."""
+        x = self.patch_embed.proj(video.to(self.dtype))
+        if x.shape[1] != self.pos_embed_v.shape[0]:
+            raise NotImplementedError(
+                f"video gives {x.shape[1]} tokens, the layout {self.pos_embed_v.shape[0]}: "
+                "pos-embed interpolation is not ported yet"
+            )
+        x = x + self.pos_embed_v.to(self.dtype)
+        if self.layout.audio_enabled:
+            if audio is None:
+                raise ValueError("layout has audio enabled but no audio given")
+            a = self.patch_embed.audio_proj(audio.to(self.dtype))
+            x = torch.cat([x, a + self.pos_embed_a.to(self.dtype)], dim=1)
+        for blk in self.blocks:
+            x = blk(x, key_mask=key_mask)
+        return layer_norm(self.norm, x)

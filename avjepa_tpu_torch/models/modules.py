@@ -1,0 +1,92 @@
+"""Transformer primitives: Mlp, Attention and the pre-LN Block.
+
+Counterpart of ``avjepa_tpu/models/modules.py``. Parameters are f32
+``nn.Linear`` / ``nn.LayerNorm`` modules named with the reference state-dict
+keys (``attn.qkv``, ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``, ``norm1``,
+``norm2``). Compute follows the input's dtype, as flax's ``dtype=`` does:
+linear layers cast their f32 weights to it, LayerNorm takes its statistics
+in f32 and casts back.
+
+The attention dispatch is the JAX package's: with ``attn_impl='flash'`` and
+heads that pack, the packed kernel reads the fused qkv in place; otherwise
+q, k, v go through ``attention(impl=...)`` as ``[B, H, N, Dh]``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from avjepa_tpu_torch.ops.attention import attention
+from avjepa_tpu_torch.ops.flash_attention import flash_attention_qkv, packed_qkv_eligible
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied in ``x``'s dtype (the weights stay f32)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm`` with f32 statistics, cast back to ``x``'s dtype."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+    return y.to(x.dtype)
+
+
+LN_EPS = 1e-6  # pre-LN and final-norm epsilon (reference: modules.py)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, gelu: str = "exact"):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+        # 'exact' is torch nn.GELU (erf); 'tanh' the approximation the
+        # configs default to (tpu.gelu)
+        self.approximate = "tanh" if gelu == "tanh" else "none"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(linear(self.fc1, x), approximate=self.approximate)
+        return linear(self.fc2, x)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_impl: str = "xla"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_impl = attn_impl
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
+        b, n, c = x.shape
+        head_dim = c // self.num_heads
+        qkv = linear(self.qkv, x)
+        if self.attn_impl == "flash" and packed_qkv_eligible(self.num_heads, head_dim):
+            out = flash_attention_qkv(qkv, self.num_heads, key_mask=key_mask)
+        else:
+            q, k, v = qkv.reshape(b, n, 3, self.num_heads, head_dim).permute(
+                2, 0, 3, 1, 4).unbind(0)  # [B, H, N, Dh] each
+            out = attention(q, k, v, key_mask=key_mask, impl=self.attn_impl)
+            out = out.transpose(1, 2).reshape(b, n, c)
+        return linear(self.proj, out)
+
+
+class Block(nn.Module):
+    """Pre-LN residual transformer block (reference: modules.py:81-120)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, attn_impl: str = "xla", gelu: str = "exact"):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, num_heads, qkv_bias, attn_impl)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu=gelu)
+
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
+        x = x + self.attn(layer_norm(self.norm1, x), key_mask=key_mask)
+        return x + self.mlp(layer_norm(self.norm2, x))

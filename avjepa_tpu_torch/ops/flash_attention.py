@@ -1,0 +1,257 @@
+"""Flash attention forward: wrappers of two hand-written CUDA kernels, and
+their plain PyTorch versions.
+
+Counterpart of ``avjepa_tpu/ops/flash_attention.py``'s forward kernels; the
+CUDA sources are in ``avjepa_tpu_torch/csrc/attention_fwd.cu``.
+
+- ``flash_attention_qkv`` (packed path, the serving path of every model whose
+  heads pack): attention read in place off the fused qkv projection
+  ``[B, N, 3C]``, with the clamped no-max softmax of the TPU kernel.
+- ``flash_attention`` (classic path, for heads that do not pack, as with
+  vit_tiny's 3): ``[B, H, N, Dh]`` streaming softmax with a running max.
+
+A wrapper given a tensor on the CPU runs the plain version (``*_ref``); given
+a CUDA tensor it launches its kernel or raises. The kernels mask the ragged
+edge of N themselves, so unlike the TPU wrappers nothing is padded: keys past
+N are excluded exactly as the TPU wrapper's padded keys are. On the GPU,
+bf16/f16 inputs need a head_dim that is a multiple of 8 and rows aligned to
+16 bytes (true of any qkv projection output); f32 inputs take a slower exact
+kernel. In f16 the packed path's p = exp(min(s, 80)) overflows above s ~ 11
+(the apps run float16 configs in bf16, as the JAX package does).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from avjepa_tpu_torch.ops._build import check, load_library
+from avjepa_tpu_torch.ops.attention import xla_attention
+
+NEG_INF = -1e30
+BLOCK = 128
+SOFTMAX_CLAMP = 80.0  # logit clamp of the packed path's no-max softmax
+LANE = 128
+
+# kernel launches since the last reset, one count per kernel; a wrapper adds
+# one where it launches its kernel and nowhere else
+LAUNCHES = {"fwd_packed": 0, "fwd": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_MAX_HEAD_DIM = 128
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _heads_per_block(head_dim: int) -> int:
+    """Heads per 128-wide lane group in the TPU kernel (lcm(d, 128) / d).
+    Kept so that the port takes the packed path exactly when the JAX
+    package does."""
+    return LANE // math.gcd(LANE, head_dim)
+
+
+def packed_qkv_eligible(num_heads: int, head_dim: int) -> bool:
+    hpb = _heads_per_block(head_dim)
+    return head_dim <= LANE and hpb <= num_heads and num_heads % hpb == 0
+
+
+def _key_bias(key_mask: torch.Tensor | None, b: int, n: int) -> torch.Tensor | None:
+    """[B, N] bool mask (True = valid) or f32 additive bias -> f32 bias
+    (0 for a valid key, -1e30 for a masked one)."""
+    if key_mask is None:
+        return None
+    if tuple(key_mask.shape) != (b, n):
+        raise ValueError(f"key_mask shape {tuple(key_mask.shape)} != {(b, n)}")
+    if key_mask.dtype == torch.bool:
+        return torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
+    if key_mask.dtype != torch.float32:
+        raise ValueError(f"key_mask must be bool or float32, got {key_mask.dtype}")
+    return key_mask.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' contracts in PyTorch
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_qkv_ref(
+    qkv: torch.Tensor,
+    num_heads: int,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed kernel's contract: (out [B, N, C], lse [B, H, N] f32).
+
+    q is scaled in f32 and rounded to the input type; logits are f32;
+    p = exp(min(s, 80)) with no max; p is rounded to the input type for the
+    PV product; out = acc / max(l, 1e-30), lse = log(max(l, 1e-30)). A
+    masked key gives p = 0, so a row with no valid key gives exactly 0.
+    """
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    if scale is None:
+        scale = d**-0.5
+    q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    qs = (q.float() * scale).to(qkv.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    bias = _key_bias(key_mask, b, n)
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP))
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    acc = torch.matmul(p.to(qkv.dtype).float(), v.float())
+    out = (acc / l).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(b, n, c), torch.log(l[..., 0])
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The classic kernel's contract: (out [B, H, N, d], lse [B, H, N] f32).
+
+    s = q.k^T * scale (f32) + bias; p = exp(s - max s), rounded to the input
+    type for the PV product; out = acc / max(l, 1e-30),
+    lse = m + log(max(l, 1e-30)). A row with no valid key gives 0 (the
+    kernel skips every tile of it).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = _key_bias(key_mask, q.shape[0], k.shape[2])
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if bias is not None:
+        p = torch.where(bias[:, None, None, :] > -1.0, p, 0.0)
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    acc = torch.matmul(p.to(q.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CPU or CUDA tensor, got {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs unit stride along its last dim")
+
+
+def _launch_args(bias: torch.Tensor | None) -> tuple[int | None, int]:
+    return (bias.data_ptr(), bias.stride(0)) if bias is not None else (None, 0)
+
+
+def flash_attention_qkv_fwd(
+    qkv: torch.Tensor,
+    num_heads: int,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed attention off the fused qkv: (out [B, N, C], lse [B, H, N])."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    if c3 != 3 * c or c != num_heads * d or not packed_qkv_eligible(num_heads, d):
+        raise ValueError(f"qkv {tuple(qkv.shape)} with {num_heads} heads cannot pack")
+    if scale is None:
+        scale = d**-0.5
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_ref(qkv, num_heads, key_mask, scale)
+    _check_cuda(qkv, "qkv")
+    bias = _key_bias(key_mask, b, n)
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    lib = load_library()
+    with torch.cuda.device(qkv.device):
+        code = lib.avj_attn_fwd_packed(
+            _DTYPE_CODES[qkv.dtype], qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
+            out.data_ptr(), lse.data_ptr(), *_launch_args(bias),
+            b, n, num_heads, d, scale, torch.cuda.current_stream().cuda_stream,
+        )
+    check(lib, code, "attn_fwd_packed")
+    LAUNCHES["fwd_packed"] += 1
+    return out, lse
+
+
+def flash_attention_qkv(
+    qkv: torch.Tensor,
+    num_heads: int,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention straight off the fused qkv projection.
+
+    qkv: [B, N, 3*C] (feature packing [q | k | v], heads contiguous within
+    each C). Returns [B, N, C]. Requires packed_qkv_eligible(num_heads,
+    C // num_heads).
+    """
+    return flash_attention_qkv_fwd(qkv, num_heads, key_mask, scale)[0]
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Classic flash attention over [B, H, N, d]: (out, lse [B, H, N])."""
+    b, h, n, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, key_mask, scale)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_cuda(t, name)
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} differs from q in dtype or device")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}")
+    bias = _key_bias(key_mask, b, n)
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.avj_attn_fwd(
+            _DTYPE_CODES[q.dtype],
+            q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+            v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+            out.data_ptr(), lse.data_ptr(), *_launch_args(bias),
+            b, h, n, d, scale, torch.cuda.current_stream().cuda_stream,
+        )
+    check(lib, code, "attn_fwd")
+    LAUNCHES["fwd"] += 1
+    return out, lse
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """[B, H, N, Dh] attention; takes the plain path for head dims not
+    divisible by 8 and sequences shorter than 128, as the JAX package does."""
+    d, n = q.shape[-1], q.shape[-2]
+    if d % 8 != 0 or n < BLOCK:
+        return xla_attention(q, k, v, key_mask=key_mask, scale=scale)
+    return flash_attention_fwd(q, k, v, key_mask, scale)[0]
