@@ -1,10 +1,12 @@
 """AV-JEPA on PyTorch and CUDA: the port of ``avjepa_tpu`` to one NVIDIA H100.
 
 The JAX package ``avjepa_tpu`` stays the reference. This package mirrors its
-module paths, reads the same YAML configs, and never imports JAX. Its
+module paths, reads the same YAML configs, and imports neither JAX nor the
+JAX package (it keeps its own copies of the host modules it needs). Its
 attention kernels are written by hand for Hopper (``csrc/``) and built with
 ``nvcc`` at first use (``ops/_build.py``); every other operation is stock
-PyTorch. Ported so far: the ``extract`` serving app (see ROADMAP.md).
+PyTorch. Ported so far: the ``avjepa`` / ``vjepa`` pretrain apps and the
+``extract`` serving app (see ROADMAP.md).
 """
 
 __version__ = "0.1.0"

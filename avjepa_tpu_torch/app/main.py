@@ -1,8 +1,8 @@
 """CLI launcher: ``python -m avjepa_tpu_torch.app.main --fname cfg.yaml``.
 
 Same YAML schema and CLI shape as ``avjepa_tpu/app/main.py``. One process
-drives one GPU (or the CPU where no GPU is present); there is no
-``torch.distributed`` yet.
+drives one device: the GPU (``--device cuda``, the default), or the CPU when
+``--device cpu`` asks for it. There is no ``torch.distributed`` yet.
 """
 
 from __future__ import annotations
@@ -13,12 +13,11 @@ import os
 import yaml
 
 
-def launch(fname: str, dump_dir: str | None = None):
-    from avjepa_tpu.utils.logging import get_logger
-
+def launch(fname: str, dump_dir: str | None = None, device: str = "cuda"):
     from avjepa_tpu_torch.config import load_config
     from avjepa_tpu_torch.registry import app_main
-    from avjepa_tpu_torch.utils.device import default_device
+    from avjepa_tpu_torch.utils.device import resolve_device
+    from avjepa_tpu_torch.utils.logging import get_logger
 
     logger = get_logger("avjepa_tpu_torch")
     logger.info(f"loading config {fname}")
@@ -26,14 +25,15 @@ def launch(fname: str, dump_dir: str | None = None):
         params = yaml.safe_load(f)
 
     cfg = load_config(params)
+    device = resolve_device(device)
     # dump the effective params next to the logs, as the JAX launcher does
     folder = dump_dir or cfg.logging.folder
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, "params-pretrain.yaml"), "w") as f:
         yaml.safe_dump(params, f)
 
-    logger.info(f"launching app '{cfg.app}' on {default_device()}")
-    return app_main(cfg.app, params)
+    logger.info(f"launching app '{cfg.app}' on {device}")
+    return app_main(cfg.app, params, device=device)
 
 
 def parse_args(argv=None):
@@ -42,9 +42,13 @@ def parse_args(argv=None):
     parser.add_argument(
         "--folder", type=str, default=None, help="override log/dump folder"
     )
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="torch device to run on (default cuda; cpu must be asked for)",
+    )
     return parser.parse_args(argv)
 
 
 if __name__ == "__main__":
     args = parse_args()
-    launch(args.fname, args.folder)
+    launch(args.fname, args.folder, args.device)

@@ -1,46 +1,189 @@
-"""Experiment configuration without JAX.
+"""Typed experiment configuration, without JAX.
 
-The schema is the JAX package's own: ``ExperimentConfig`` and its section
-dataclasses come from ``avjepa_tpu.config``, which imports no JAX itself.
-Only its ``validate`` does (it reads the model table of the flax factory), so
-this module parses the same YAML with the same section aliases and checks it
-against the port's own ``VIT_SPECS``. The ``tpu:`` section is read as it is;
-of its knobs, ``attn_impl`` and ``gelu`` mean something on the GPU.
+The port's copy of ``avjepa_tpu/config.py``: the same YAML schema (the
+reference's keys, plus the JAX package's ``tpu:`` section), the same
+dataclasses, defaults and section aliases, validated against the port's own
+``VIT_SPECS``. Of the ``tpu:`` knobs, ``attn_impl``, ``gelu``, ``remat``,
+``mask_type``, ``compact_context``, ``compact_predictor``,
+``sticky_mask_buckets`` and ``light_metrics`` mean the same on the GPU; the
+mesh knobs are read and not used (one process drives one device).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Sequence
+
 import yaml
 
-from avjepa_tpu.config import (  # noqa: F401  (dump_config is re-exported)
-    DataAugConfig,
-    DataConfig,
-    ExperimentConfig,
-    ExtractConfig,
-    LoggingConfig,
-    LossConfig,
-    MetaConfig,
-    ModelConfig,
-    OptimizationConfig,
-    TpuConfig,
-    _build,
-    dump_config,
-)
-from avjepa_tpu_torch.models.factory import VIT_SPECS
+from avjepa_tpu_torch.layout import TokenLayout
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset_type: str = "audiovideodataset"
+    datasets: Sequence[str] = ()
+    batch_size: int = 24
+    num_clips: int = 1
+    num_frames: int = 16
+    tubelet_size: int = 2
+    sampling_rate: int = 4
+    crop_size: int = 224
+    patch_size: int = 16
+    num_workers: int = 4
+    pin_mem: bool = True  # accepted for reference-config compatibility
+    decode_one_clip: bool = True  # dead in the reference too; accepted
+    filter_short_videos: bool = False
+    filter_long_videos: int = int(1e9)  # bytes (reference filters by file size)
+    clip_duration: Optional[float] = None
+    datasets_weights: Optional[Sequence[float]] = None
+    # fast-forward the data stream by N batches at startup
+    # (reference: app/avjepa/train.py:356-366)
+    skip_batches: int = 0
+    # the reference reads mask_type from the data section; takes precedence
+    # over tpu.mask_type
+    mask_type: Optional[str] = None
+    val_datasets: Optional[Sequence[str]] = None
+    log_resource_utilization: bool = False
+    # 'synthetic' generates deterministic fake AV clips (no media files)
+    source: str = "files"
+
+
+@dataclasses.dataclass
+class DataAugConfig:
+    auto_augment: bool = False
+    motion_shift: bool = False
+    random_resize_aspect_ratio: Sequence[float] = (0.75, 1.35)
+    random_resize_scale: Sequence[float] = (0.3, 1.0)
+    reprob: float = 0.0
+    horizontal_flip: bool = True
+
+
+@dataclasses.dataclass
+class LossConfig:
+    loss_exp: float = 1.0
+    reg_coeff: float = 0.0
+
+
+@dataclasses.dataclass
+class MetaConfig:
+    seed: int = 234
+    dtype: str = "bfloat16"
+    load_checkpoint: bool = False
+    read_checkpoint: Optional[str] = None
+    eval_freq: int = 100  # read by no reference code path; accepted
+    use_sdpa: bool = True  # accepted; attention is tpu.attn_impl
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    model_name: str = "vit_base"
+    pred_depth: int = 6
+    pred_embed_dim: int = 384
+    uniform_power: bool = False
+    use_mask_tokens: bool = True
+    zero_init_mask_tokens: bool = True
+
+
+@dataclasses.dataclass
+class OptimizationConfig:
+    ipe: int = 300
+    ipe_scale: float = 1.25
+    clip_grad: Optional[float] = 10.0
+    weight_decay: float = 0.04
+    final_weight_decay: float = 0.4
+    epochs: int = 300
+    warmup: float = 40
+    start_lr: float = 2e-4
+    lr: float = 6.25e-4
+    final_lr: float = 1e-6
+    ema: Sequence[float] = (0.998, 1.0)
+    betas: Sequence[float] = (0.9, 0.999)
+    eps: float = 1e-8
+
+
+@dataclasses.dataclass
+class LoggingConfig:
+    folder: str = "./logs"
+    write_tag: str = "jepa"
+    checkpoint_freq: int = 1
+    save_every_freq: int = -1
+    log_freq: int = 10
+
+
+@dataclasses.dataclass
+class TpuConfig:
+    """The JAX package's extension section, under its own name so that the
+    same YAML files load in both packages."""
+
+    mesh_data: int = -1
+    mesh_fsdp: int = 1
+    mesh_tensor: int = 1
+    # recompute each transformer block in the backward pass
+    remat: bool = False
+    attn_impl: str = "xla"  # 'xla' | 'flash'
+    mask_type: str = "multiblock3d"
+    # run the context encoder only on kept tokens (bucketed to 128)
+    compact_context: bool = True
+    # run the predictor blocks only on enc∪pred tokens (bucketed to 128)
+    compact_predictor: bool = True
+    gelu: str = "tanh"  # 'tanh' | 'exact'
+    # K buckets only ratchet upward (fewer distinct shapes, more padding)
+    sticky_mask_buckets: bool = False
+    # diagnostic reductions only on log_freq steps
+    light_metrics: bool = True
+
+
+@dataclasses.dataclass
+class ExtractConfig:
+    output: Optional[str] = None  # default: <logging.folder>/<write_tag>-features
+    pooling: str = "mean"  # 'mean' -> one [D] vector per clip; 'tokens' -> [N, D]
+    use_target_encoder: bool = True
+    layer_norm: bool = True
+    limit: Optional[int] = None
+    allow_random: bool = False
+    chunk_rows: int = 2048
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    app: str = "avjepa"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    data_aug: DataAugConfig = dataclasses.field(default_factory=DataAugConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    meta: MetaConfig = dataclasses.field(default_factory=MetaConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    optimization: OptimizationConfig = dataclasses.field(default_factory=OptimizationConfig)
+    logging: LoggingConfig = dataclasses.field(default_factory=LoggingConfig)
+    tpu: TpuConfig = dataclasses.field(default_factory=TpuConfig)
+    extract: ExtractConfig = dataclasses.field(default_factory=ExtractConfig)
+    mask: Sequence[dict] = dataclasses.field(default_factory=list)
+    raw: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def layout(self, audio: Optional[bool] = None) -> TokenLayout:
+        if audio is None:
+            audio = self.data.dataset_type.lower() in ("audiovideodataset", "avdataset")
+        return TokenLayout(
+            num_frames=self.data.num_frames,
+            crop_size=self.data.crop_size,
+            patch_size=self.data.patch_size,
+            tubelet_size=self.data.tubelet_size,
+            audio_enabled=audio,
+        )
 
 
 def validate(cfg: ExperimentConfig) -> None:
-    """``ExperimentConfig.validate`` against the port's model table, plus the
-    two ``tpu:`` knobs the port reads."""
+    """The JAX package's ``ExperimentConfig.validate`` against the port's
+    model table, plus the ``tpu:`` knobs the port reads."""
+    from avjepa_tpu_torch.models.factory import VIT_SPECS
+
     lo = cfg.layout()
     if lo.crop_size % lo.patch_size:
         raise ValueError("crop_size % patch_size != 0")
     if lo.num_frames % lo.tubelet_size:
         raise ValueError("num_frames % tubelet != 0")
     if cfg.model.model_name not in VIT_SPECS:
-        raise ValueError(
-            f"unknown model {cfg.model.model_name}; options: {list(VIT_SPECS)}"
-        )
+        raise ValueError(f"unknown model {cfg.model.model_name}; options: {list(VIT_SPECS)}")
     heads = VIT_SPECS[cfg.model.model_name].num_heads
     if cfg.model.pred_embed_dim % heads:
         raise ValueError(
@@ -66,9 +209,15 @@ def validate(cfg: ExperimentConfig) -> None:
             raise ValueError("extract supports num_clips == 1 (one embedding per clip)")
 
 
+def _build(cls, d: Optional[dict]):
+    """``cls`` from the keys of ``d`` that are its fields (others ignored)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in (d or {}).items() if k in names})
+
+
 def load_config(source: str | dict) -> ExperimentConfig:
     """Load from a YAML path, YAML string, or dict (the reference key schema),
-    with the section aliases of ``avjepa_tpu.config.load_config``."""
+    with the JAX package's section aliases."""
     if isinstance(source, dict):
         d = source
     else:
@@ -97,7 +246,7 @@ def load_config(source: str | dict) -> ExperimentConfig:
         loss=_build(LossConfig, d.get("loss")),
         meta=_build(MetaConfig, meta_d),
         model=_build(ModelConfig, d.get("model")),
-        optimization=_build(OptimizationConfig, dict(d.get("optimization") or {})),
+        optimization=_build(OptimizationConfig, d.get("optimization")),
         logging=_build(LoggingConfig, logging_d),
         tpu=_build(TpuConfig, d.get("tpu")),
         extract=_build(ExtractConfig, d.get("extract")),
@@ -106,3 +255,9 @@ def load_config(source: str | dict) -> ExperimentConfig:
     )
     validate(cfg)
     return cfg
+
+
+def dump_config(cfg: ExperimentConfig, path: str) -> None:
+    """Dump the effective config next to the logs (reference: app/main.py:51-53)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.raw or dataclasses.asdict(cfg), f)

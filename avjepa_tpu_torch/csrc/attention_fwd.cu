@@ -31,20 +31,12 @@
 // f32 inputs (exact comparisons, not speed) take a simple kernel: shared
 // memory tiles and FMA loops. Not yet used: wgmma, TMA, double-buffered K/V.
 
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_D = 128;
-constexpr float NEG_BIAS = -1e30f;
-constexpr float SOFTMAX_CLAMP = 80.0f;
 
 struct Params {
   const void* q;
@@ -62,91 +54,9 @@ struct Params {
   float scale;
 };
 
-// bias of one key; keys past N are excluded like masked keys
-__device__ __forceinline__ float key_bias(const float* bias_g, int key, int N) {
-  if (key >= N) return NEG_BIAS;
-  return bias_g ? bias_g[key] : 0.0f;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---------------------------------------------------------------------------
 // bf16 / f16: tensor cores, register-resident (FlashAttention-2 layout)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false the 16 bytes are zero-filled and
-// nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
-               : "memory");
-}
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  // d += a (16x16, row) . b (16x8, col)
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ float2 unpack(uint32_t u) {
-    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-  }
-};
-
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ float2 unpack(uint32_t u) {
-    return __half22float2(*reinterpret_cast<__half2*>(&u));
-  }
-};
 
 // CLAMPED = K1 numerics (scale folded into q, no-max clamped softmax);
 // otherwise K3 numerics (scale on s, running max). DP = d padded to 32.
@@ -422,20 +332,12 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_f32_kernel(const Params prm
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + BQ - 1) / BQ, p.H, p.B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
+dim3 grid_of(const Params& p) { return dim3((p.N + BQ - 1) / BQ, p.H, p.B); }
 
 template <typename T, bool CLAMPED, int DP>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (BQ + 2 * BK) * (DP + 8);
-  return launch(attn_fwd_mma_kernel<T, CLAMPED, DP>, smem, p, stream);
+  return launch_kernel(attn_fwd_mma_kernel<T, CLAMPED, DP>, grid_of(p), smem, p, stream);
 }
 
 template <typename T, bool CLAMPED>
@@ -444,10 +346,6 @@ cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
   if (p.d <= 64) return launch_mma<T, CLAMPED, 64>(p, stream);
   if (p.d <= 96) return launch_mma<T, CLAMPED, 96>(p, stream);
   return launch_mma<T, CLAMPED, 128>(p, stream);
-}
-
-bool aligned16(const void* ptr, long long sb, long long sh, long long sn) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 && sh % 8 == 0 && sn % 8 == 0;
 }
 
 template <bool CLAMPED>
@@ -459,7 +357,7 @@ int dispatch(int dtype, const Params& p, void* stream) {
   if (dtype == 0) {
     const int ld = p.d + 1;
     const size_t smem = sizeof(float) * ((BQ + 2 * BK) * ld + BQ * F32_LDS + BQ * ld + 2 * BQ);
-    return static_cast<int>(launch(attn_fwd_f32_kernel<CLAMPED>, smem, p, s));
+    return static_cast<int>(launch_kernel(attn_fwd_f32_kernel<CLAMPED>, grid_of(p), smem, p, s));
   }
   // the 16-bit kernel copies 16-byte chunks: 8-element rows, aligned
   if (p.d % 8 || !aligned16(p.q, p.q_sb, p.q_sh, p.q_sn) ||
@@ -470,8 +368,6 @@ int dispatch(int dtype, const Params& p, void* stream) {
   if (dtype == 2) return static_cast<int>(launch_16bit<__nv_bfloat16, CLAMPED>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-size_t elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 

@@ -1,2 +1,1 @@
-"""Host-side data pipeline; the datasets themselves are shared with
-``avjepa_tpu.data``, whose dataset modules import no JAX."""
+"""Host-side data pipeline: datasets, transforms and the batch loader."""

@@ -1,12 +1,13 @@
 """Host-side batching without JAX: a sharded index sampler and a threaded
-batch loader over the datasets of ``avjepa_tpu.data``.
+batch loader.
 
-Counterpart of ``avjepa_tpu/data/loader.py`` for the serving path. The
-sampler keeps that module's semantics; the number of shards and this
-process's shard are given explicitly (one process drives one GPU). The
-loader decodes samples in a thread pool, retries a failed decode on a
-resampled index, and keeps a bounded queue of batches ahead of the consumer.
-It builds no mask sets (serving needs none).
+Counterpart of ``avjepa_tpu/data/loader.py``. The sampler keeps that
+module's semantics; the number of shards and this process's shard are given
+explicitly (one process drives one GPU). The loader decodes samples in a
+thread pool, retries a failed decode on a resampled index, calls the mask
+collator once per batch in batch order on its producer thread (as
+``JepaLoader._assemble`` does), and keeps a bounded queue of batches ahead of
+the consumer.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import numpy as np
 
 
 class ShardedSampler:
-    """Epoch-shuffled, sharded index sampler (DistributedSampler semantics:
-    equal shards, wrap-around padding, set_epoch reshuffle)."""
+    """Epoch-shuffled (or weighted), sharded index sampler (DistributedSampler
+    semantics: equal shards, wrap-around padding, set_epoch reshuffle)."""
 
     def __init__(
         self,
@@ -32,6 +33,7 @@ class ShardedSampler:
         num_shards: int = 1,
         shard_index: int = 0,
         drop_last: bool = True,
+        weights: Optional[np.ndarray] = None,
     ):
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
@@ -42,14 +44,20 @@ class ShardedSampler:
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.drop_last = drop_last
+        self.weights = weights
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        if self.shuffle:
-            order = np.random.default_rng([self.seed, self.epoch]).permutation(self.dataset_len)
+        rng = np.random.default_rng([self.seed, self.epoch])
+        if self.weights is not None:
+            # multi-dataset weighted draws (reference DistributedWeightedSampler)
+            w = np.asarray(self.weights, np.float64)
+            order = rng.choice(self.dataset_len, size=self.dataset_len, p=w / w.sum())
+        elif self.shuffle:
+            order = rng.permutation(self.dataset_len)
         else:
             order = np.arange(self.dataset_len)
         # pad to a multiple of shards (DistributedSampler wrap-around)
@@ -88,15 +96,24 @@ def collate_av(samples) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
 
 
 class BatchLoader:
-    """Iterates collated batches, decoding ahead in ``num_workers`` threads
-    with at most ``prefetch`` batches waiting. ``close()`` stops the pool."""
+    """Iterates collated batches ``(video, audio, labels)``, plus the mask
+    sets ``mask_collator(batch_size)`` when one is given, decoding ahead in
+    ``num_workers`` threads with at most ``prefetch`` batches waiting.
+    ``close()`` stops the pool."""
 
     def __init__(self, dataset, sampler: ShardedSampler, num_workers: int = 4,
-                 prefetch: int = 2):
+                 prefetch: int = 2, mask_collator=None):
         self.dataset = dataset
         self.sampler = sampler
         self.prefetch = prefetch
+        self.mask_collator = mask_collator
         self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+
+    def set_epoch(self, epoch: int) -> None:
+        """Reshuffle, and salt the dataset's per-sample augmentation."""
+        self.sampler.set_epoch(epoch)
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def close(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
@@ -105,7 +122,10 @@ class BatchLoader:
         samples = list(
             self._pool.map(lambda i: fetch_with_retry(self.dataset, i), indices)
         )
-        return collate_av(samples)
+        batch = collate_av(samples)
+        if self.mask_collator is None:
+            return batch
+        return (*batch, self.mask_collator(len(indices)))
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

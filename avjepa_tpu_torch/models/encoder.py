@@ -1,10 +1,10 @@
 """The JEPA encoder over a (video, audio) token sequence.
 
-Counterpart of ``avjepa_tpu/models/encoder.py`` in the modes serving uses:
-AV (video tokens, then audio tokens) and video-only (``layout.audio_enabled``
-False), dense, with an optional ``[B, N]`` key mask. The blocks are an
-``nn.ModuleList`` (the JAX package scans one stacked block). Not ported yet:
-``gather_idx`` compaction, image mode and pos-embed interpolation.
+Counterpart of ``avjepa_tpu/models/encoder.py``: AV (video tokens, then
+audio tokens) and video-only (``layout.audio_enabled`` False), dense with an
+optional ``[B, N]`` key mask, or compacted to the tokens of ``gather_idx``.
+The blocks are an ``nn.ModuleList`` (the JAX package scans one stacked
+block). Not ported yet: image mode and pos-embed interpolation.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from avjepa_tpu.layout import TokenLayout
+from avjepa_tpu_torch.layout import TokenLayout
 from avjepa_tpu_torch.models import pos_embed as pe
-from avjepa_tpu_torch.models.modules import LN_EPS, Block, layer_norm
+from avjepa_tpu_torch.models.modules import LN_EPS, Block, layer_norm, run_blocks
 from avjepa_tpu_torch.models.patch_embed import AVPatchEmbed
 
 
@@ -32,12 +32,14 @@ class Encoder(nn.Module):
         dtype: torch.dtype = torch.float32,
         attn_impl: str = "xla",
         gelu: str = "exact",
+        remat: bool = False,
     ):
         super().__init__()
         if layout.num_frames <= 1:
             raise NotImplementedError("image mode is not ported yet (see ROADMAP.md)")
         self.layout = layout
         self.dtype = dtype
+        self.remat = remat
         self.patch_embed = AVPatchEmbed(layout, embed_dim)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, attn_impl=attn_impl, gelu=gelu)
@@ -59,10 +61,18 @@ class Encoder(nn.Module):
         video: torch.Tensor,
         audio: Optional[torch.Tensor] = None,
         key_mask: Optional[torch.Tensor] = None,
+        gather_idx: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """video [B, T, H, W, 3]; audio [B, Hs, Ws, 1]; key_mask [B, N] bool
-        or None (every token valid). Returns [B, N, D] in ``self.dtype``;
-        rows at masked positions are finite garbage for callers to mask."""
+        or None (every token valid), over the compacted sequence when
+        ``gather_idx`` is given.
+
+        gather_idx: optional [B, K] int — only these token positions enter
+        the blocks (K is bucket-padded with the sentinel N, which is clamped
+        for the gather and must be masked out by key_mask).
+
+        Returns [B, N, D] (or [B, K, D]) in ``self.dtype``; rows at masked
+        positions are finite garbage for callers to mask."""
         x = self.patch_embed.proj(video.to(self.dtype))
         if x.shape[1] != self.pos_embed_v.shape[0]:
             raise NotImplementedError(
@@ -75,6 +85,8 @@ class Encoder(nn.Module):
                 raise ValueError("layout has audio enabled but no audio given")
             a = self.patch_embed.audio_proj(audio.to(self.dtype))
             x = torch.cat([x, a + self.pos_embed_a.to(self.dtype)], dim=1)
-        for blk in self.blocks:
-            x = blk(x, key_mask=key_mask)
+        if gather_idx is not None:
+            safe = gather_idx.clamp(max=x.shape[1] - 1).long()
+            x = torch.gather(x, 1, safe[..., None].expand(-1, -1, x.shape[-1]))
+        x = run_blocks(self.blocks, x, key_mask, self.remat)
         return layer_norm(self.norm, x)

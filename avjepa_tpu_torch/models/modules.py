@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from avjepa_tpu_torch.ops.attention import attention
@@ -74,6 +75,19 @@ class Attention(nn.Module):
             out = attention(q, k, v, key_mask=key_mask, impl=self.attn_impl)
             out = out.transpose(1, 2).reshape(b, n, c)
         return linear(self.proj, out)
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, key_mask: Optional[torch.Tensor],
+               remat: bool) -> torch.Tensor:
+    """The block stack; with ``remat`` and gradients on, each block is
+    recomputed in the backward pass (``torch.utils.checkpoint``), so only the
+    block inputs are kept. Its attention kernels then run once more."""
+    for blk in blocks:
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(blk, x, key_mask, use_reentrant=False)
+        else:
+            x = blk(x, key_mask)
+    return x
 
 
 class Block(nn.Module):

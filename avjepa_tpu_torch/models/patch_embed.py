@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avjepa_tpu.layout import TokenLayout
+from avjepa_tpu_torch.layout import TokenLayout
 
 
 def patchify_2d(x: torch.Tensor, p: int) -> torch.Tensor:

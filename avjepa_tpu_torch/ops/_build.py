@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
-Every ``*.cu`` under ``avjepa_tpu_torch/csrc/`` is compiled into one shared
-library with a plain C interface for Hopper (``sm_90a``). No PyTorch header
-is included, so a build takes seconds. The library lands in
+Every ``*.cu`` under ``avjepa_tpu_torch/csrc/`` is compiled for Hopper
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+are linked into one shared library with a plain C interface. No PyTorch
+header is included, so a build takes seconds. The library lands in
 ``avjepa_tpu_torch/_build/``, named by a hash of the sources and the flags, so
 an edited source rebuilds and an unchanged one loads the library already
 built. Nothing is fetched: the build needs only ``nvcc`` and the sources.
@@ -22,9 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the .log
 )
 
@@ -56,6 +57,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, i64, i32, i32, i32, i32, f32, ptr,
     ]
     lib.avj_attn_fwd.restype = i32
+    lib.avj_attn_bwd_packed.argtypes = [
+        i32, ptr, i64, i64, ptr, i64, i64, ptr, ptr, ptr, i64, ptr,
+        i32, i32, i32, i32, f32, ptr,
+    ]
+    lib.avj_attn_bwd_packed.restype = i32
+    lib.avj_attn_bwd.argtypes = [
+        i32,
+        ptr, i64, i64, i64,
+        ptr, i64, i64, i64,
+        ptr, i64, i64, i64,
+        ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr,
+        i32, i32, i32, i32, f32, ptr,
+    ]
+    lib.avj_attn_bwd.restype = i32
     lib.avj_error_string.argtypes = [i32]
     lib.avj_error_string.restype = ctypes.c_char_p
 
@@ -71,16 +86,31 @@ def load_library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libavjepa_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        log.info("building CUDA kernels: %s", " ".join(cmd))
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {res.returncode}:\n{res.stderr[-6000:]}"
-            )
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        for cmd in cmds:
+            log.info("building CUDA kernels: %s", " ".join(cmd))
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        failed = [(cmd, out) for cmd, out, proc in zip(cmds, outs, procs) if proc.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True, check=False)
+            outs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed = [(link.args, outs[-1])]
+        lib_path.with_suffix(".log").write_text("\n".join(outs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            cmd, out = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-6000:]}")
         os.replace(tmp, lib_path)
         log.info("built %s in %.1f s", lib_path.name, time.perf_counter() - t0)
     lib = ctypes.CDLL(str(lib_path))

@@ -1,14 +1,21 @@
-"""Flash attention forward: wrappers of two hand-written CUDA kernels, and
-their plain PyTorch versions.
+"""Flash attention: wrappers of four hand-written CUDA kernels (forward and
+backward of two paths), their plain PyTorch versions, and the autograd
+Functions that join them.
 
-Counterpart of ``avjepa_tpu/ops/flash_attention.py``'s forward kernels; the
-CUDA sources are in ``avjepa_tpu_torch/csrc/attention_fwd.cu``.
+Counterpart of ``avjepa_tpu/ops/flash_attention.py``; the CUDA sources are
+``avjepa_tpu_torch/csrc/attention_fwd.cu`` and ``attention_bwd.cu``.
 
-- ``flash_attention_qkv`` (packed path, the serving path of every model whose
-  heads pack): attention read in place off the fused qkv projection
-  ``[B, N, 3C]``, with the clamped no-max softmax of the TPU kernel.
+- ``flash_attention_qkv`` (packed path, every model whose heads pack):
+  attention read in place off the fused qkv projection ``[B, N, 3C]``, with
+  the clamped no-max softmax of the TPU kernel; its backward writes dq | dk |
+  dv into one ``[B, N, 3C]`` gradient.
 - ``flash_attention`` (classic path, for heads that do not pack, as with
   vit_tiny's 3): ``[B, H, N, Dh]`` streaming softmax with a running max.
+
+Both take gradients through a ``torch.autograd.Function`` that saves the
+inputs, the key bias, the output and lse; delta = rowsum(dO * O) is taken
+outside the backward kernel, as the TPU wrapper does. The key mask gets no
+gradient.
 
 A wrapper given a tensor on the CPU runs the plain version (``*_ref``); given
 a CUDA tensor it launches its kernel or raises. The kernels mask the ragged
@@ -35,8 +42,9 @@ SOFTMAX_CLAMP = 80.0  # logit clamp of the packed path's no-max softmax
 LANE = 128
 
 # kernel launches since the last reset, one count per kernel; a wrapper adds
-# one where it launches its kernel and nowhere else
-LAUNCHES = {"fwd_packed": 0, "fwd": 0}
+# one where it launches its kernel and nowhere else (a backward launch runs
+# its kernel's two passes)
+LAUNCHES = {"fwd_packed": 0, "fwd": 0, "bwd_packed": 0, "bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_HEAD_DIM = 128
@@ -138,6 +146,98 @@ def flash_attention_ref(
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+def _split_qkv(qkv: torch.Tensor, num_heads: int):
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * num_heads)
+    return qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, f32 [B, H, N], from [B, N, C] or
+    [B, H, N, d] tensors (the TPU wrappers' softmax-correction term)."""
+    prod = dout.float() * out.float()
+    if prod.dim() == 4:
+        return prod.sum(-1)
+    b, n, c = prod.shape
+    return prod.reshape(b, n, num_heads, c // num_heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_qkv_bwd_ref(
+    qkv: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The packed backward kernel's contract: dqkv [B, N, 3C].
+
+    qs and ks are scaled in f32 and rounded to the input type;
+    p = exp(min(s, 80) - lse); dv = T(p)^T.dO; ds = p * (dp - delta) where
+    s < 80, else 0; dk = T(ds)^T.qs, dq = T(ds).ks; f32 sums, cast out.
+    """
+    b, n, c3 = qkv.shape
+    dt = qkv.dtype
+    d = c3 // (3 * num_heads)
+    if scale is None:
+        scale = d**-0.5
+    q, k, v = _split_qkv(qkv, num_heads)
+    do = dout.reshape(b, n, num_heads, d).transpose(1, 2).float()
+    delta = attention_delta(out, dout, num_heads)
+    qs = (q.float() * scale).to(dt).float()
+    ks = (k.float() * scale).to(dt).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    bias = _key_bias(key_mask, b, n)
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP) - lse[..., None])
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = torch.where(s < SOFTMAX_CLAMP, p * (dp - delta[..., None]), 0.0).to(dt).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, ks)
+    grads = torch.stack([dq, dk, dv], 2).to(dt)  # [B, H, 3, N, d]
+    return grads.permute(0, 3, 2, 1, 4).reshape(b, n, c3)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The classic backward kernel's contract: (dq, dk, dv) [B, H, N, d].
+
+    p = exp(s * scale + bias - lse), 0 at masked keys (the kernel skips
+    all-masked key tiles, and a masked key's p underflows to 0 elsewhere);
+    ds = p * (dp - delta) * scale; dk = T(ds)^T.q, dq = T(ds).k,
+    dv = T(p)^T.dO; f32 sums, cast out.
+    """
+    dt = q.dtype
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = attention_delta(out, dout, q.shape[1])
+    do = dout.float()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = _key_bias(key_mask, q.shape[0], k.shape[2])
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    if bias is not None:
+        p = torch.where(bias[:, None, None, :] > -1.0, p, 0.0)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -188,19 +288,73 @@ def flash_attention_qkv_fwd(
     return out, lse
 
 
+def flash_attention_qkv_bwd(
+    qkv: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Backward of the packed attention: dqkv [B, N, 3C]. ``key_mask`` is
+    the forward's (bool, or its f32 bias)."""
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * num_heads)
+    if scale is None:
+        scale = d**-0.5
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_bwd_ref(qkv, out, lse, dout, num_heads, key_mask, scale)
+    _check_cuda(qkv, "qkv")
+    dout = dout.contiguous()
+    if dout.shape != out.shape or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match the output")
+    bias = _key_bias(key_mask, b, n)
+    delta = attention_delta(out, dout, num_heads)
+    lse = lse.contiguous()
+    dqkv = torch.empty((b, n, c3), dtype=qkv.dtype, device=qkv.device)
+    lib = load_library()
+    with torch.cuda.device(qkv.device):
+        code = lib.avj_attn_bwd_packed(
+            _DTYPE_CODES[qkv.dtype], qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
+            dout.data_ptr(), dout.stride(0), dout.stride(1),
+            lse.data_ptr(), delta.data_ptr(), *_launch_args(bias), dqkv.data_ptr(),
+            b, n, num_heads, d, scale, torch.cuda.current_stream().cuda_stream,
+        )
+    check(lib, code, "attn_bwd_packed")
+    LAUNCHES["bwd_packed"] += 1
+    return dqkv
+
+
+class _PackedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, scale):
+        out, lse = flash_attention_qkv_fwd(qkv, num_heads, bias, scale)
+        ctx.save_for_backward(qkv, bias, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, out, lse = ctx.saved_tensors
+        dqkv = flash_attention_qkv_bwd(qkv, out, lse, dout, ctx.num_heads, bias, ctx.scale)
+        return dqkv, None, None, None
+
+
 def flash_attention_qkv(
     qkv: torch.Tensor,
     num_heads: int,
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention straight off the fused qkv projection.
+    """Attention straight off the fused qkv projection, differentiable.
 
     qkv: [B, N, 3*C] (feature packing [q | k | v], heads contiguous within
     each C). Returns [B, N, C]. Requires packed_qkv_eligible(num_heads,
     C // num_heads).
     """
-    return flash_attention_qkv_fwd(qkv, num_heads, key_mask, scale)[0]
+    bias = _key_bias(key_mask, qkv.shape[0], qkv.shape[1])
+    return _PackedAttention.apply(qkv, bias, num_heads, scale)
 
 
 def flash_attention_fwd(
@@ -242,6 +396,62 @@ def flash_attention_fwd(
     return out, lse
 
 
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of the classic attention: (dq, dk, dv) [B, H, N, d]."""
+    b, h, n, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, key_mask, scale)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_cuda(t, name)
+    dout = dout.contiguous()
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match q")
+    bias = _key_bias(key_mask, b, n)
+    delta = attention_delta(out, dout, h)
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.avj_attn_bwd(
+            _DTYPE_CODES[q.dtype],
+            q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+            v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_launch_args(bias),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, d, scale, torch.cuda.current_stream().cuda_stream,
+        )
+    check(lib, code, "attn_bwd")
+    LAUNCHES["bwd"] += 1
+    return dq, dk, dv
+
+
+class _ClassicAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = flash_attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, bias, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -249,9 +459,11 @@ def flash_attention(
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """[B, H, N, Dh] attention; takes the plain path for head dims not
-    divisible by 8 and sequences shorter than 128, as the JAX package does."""
+    """[B, H, N, Dh] attention, differentiable; takes the plain path for head
+    dims not divisible by 8 and sequences shorter than 128, as the JAX
+    package does."""
     d, n = q.shape[-1], q.shape[-2]
     if d % 8 != 0 or n < BLOCK:
         return xla_attention(q, k, v, key_mask=key_mask, scale=scale)
-    return flash_attention_fwd(q, k, v, key_mask, scale)[0]
+    bias = _key_bias(key_mask, q.shape[0], n)
+    return _ClassicAttention.apply(q, k, v, bias, scale)

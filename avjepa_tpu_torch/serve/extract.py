@@ -38,19 +38,16 @@ import time
 import numpy as np
 import torch
 
-from avjepa_tpu.data.synthetic import SyntheticAVDataset
-from avjepa_tpu.data.transforms import EvalVideoTransform
-from avjepa_tpu.utils.logging import get_logger
 from avjepa_tpu_torch.config import ExperimentConfig, dump_config, load_config
 from avjepa_tpu_torch.data.loader import BatchLoader, ShardedSampler
+from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
+from avjepa_tpu_torch.data.transforms import EvalVideoTransform
 from avjepa_tpu_torch.models.encoder import Encoder
-from avjepa_tpu_torch.models.factory import VIT_SPECS, make_encoder
+from avjepa_tpu_torch.models.factory import DTYPES, VIT_SPECS, make_encoder
 from avjepa_tpu_torch.train.step import feature_layer_norm
 from avjepa_tpu_torch.utils.checkpoint import load_encoder_checkpoint
-from avjepa_tpu_torch.utils.device import default_device
-
-# one dtype map with the JAX package: float16 configs run in bfloat16
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.bfloat16}
+from avjepa_tpu_torch.utils.device import resolve_device
+from avjepa_tpu_torch.utils.logging import get_logger
 
 
 class DeterministicClipTransform:
@@ -87,7 +84,7 @@ def _build_dataset(cfg: ExperimentConfig, layout):
         ds = SyntheticAVDataset(layout, length=max(64, cfg.data.batch_size * 4))
         paths = [f"synthetic://{i}" for i in range(len(ds))]
         return ds, paths, np.zeros(len(ds), np.int64)
-    from avjepa_tpu.data.av_dataset import AVFileDataset
+    from avjepa_tpu_torch.data.av_dataset import AVFileDataset
 
     ds = AVFileDataset(
         csv_paths=list(cfg.data.datasets),
@@ -148,12 +145,14 @@ def encode(encoder: Encoder, video: torch.Tensor, audio: torch.Tensor | None,
     return h
 
 
-def main(args, resume_preempt: bool = False) -> dict:
+def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda") -> dict:
+    """Run the app on ``device`` (the GPU unless the caller asks for the
+    CPU)."""
     cfg = args if isinstance(args, ExperimentConfig) else load_config(args)
     ex = cfg.extract
     rank = 0  # one process, one device
     logger = get_logger("avjepa_tpu_torch")
-    device = default_device()
+    device = resolve_device(device)
     layout = cfg.layout()
     if cfg.meta.dtype == "float16":
         logger.warning(

@@ -1,0 +1,111 @@
+"""Schedules and the optimizer (step-derived, resume-friendly).
+
+Counterpart of ``avjepa_tpu/train/optim.py``: every schedule is a function of
+the global step, with the reference's increment-before-evaluate convention
+and clamps (reference: src/utils/schedulers.py:11-76). AdamW is
+``torch.optim.AdamW``, with decoupled weight decay only on parameters of two
+or more dimensions whose names hold no 'bias' (reference:
+app/avjepa/utils.py:245-263); lr and wd are set on its groups every step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleConfig:
+    ipe: int
+    num_epochs: int
+    ipe_scale: float = 1.25
+    warmup_epochs: float = 40.0
+    start_lr: float = 2e-4
+    ref_lr: float = 6.25e-4
+    final_lr: float = 1e-6
+    ref_wd: float = 0.04
+    final_wd: float = 0.4
+    ema_start: float = 0.998
+    ema_end: float = 1.0
+
+    @property
+    def warmup_steps(self) -> int:
+        return int(self.warmup_epochs * self.ipe)
+
+    @property
+    def total_steps(self) -> int:
+        return int(self.ipe_scale * self.num_epochs * self.ipe)
+
+
+def lr_at_step(cfg: ScheduleConfig, step: int) -> float:
+    """LR used on iteration ``step`` (0-based): WarmupCosineSchedule, whose
+    counter is step + 1."""
+    s = step + 1.0
+    warm = float(cfg.warmup_steps)
+    if s < warm:
+        return cfg.start_lr + (s / max(warm, 1.0)) * (cfg.ref_lr - cfg.start_lr)
+    progress = (s - warm) / max(float(cfg.total_steps - cfg.warmup_steps), 1.0)
+    cos_lr = cfg.final_lr + (cfg.ref_lr - cfg.final_lr) * 0.5 * (1.0 + math.cos(math.pi * progress))
+    return max(cfg.final_lr, cos_lr)
+
+
+def wd_at_step(cfg: ScheduleConfig, step: int) -> float:
+    """WD on iteration ``step``: CosineWDSchedule, counter step + 1."""
+    progress = (step + 1.0) / cfg.total_steps
+    wd = cfg.final_wd + (cfg.ref_wd - cfg.final_wd) * 0.5 * (1.0 + math.cos(math.pi * progress))
+    return max(cfg.final_wd, wd) if cfg.final_wd <= cfg.ref_wd else min(cfg.final_wd, wd)
+
+
+def ema_at_step(cfg: ScheduleConfig, step: int) -> float:
+    """EMA momentum on iteration ``step``, linear over total_steps
+    (reference: app/avjepa/train.py:304-306)."""
+    return cfg.ema_start + step / cfg.total_steps * (cfg.ema_end - cfg.ema_start)
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """True where decoupled weight decay applies (2D+ non-bias params)."""
+    return p.ndim >= 2 and "bias" not in name
+
+
+def make_optimizer(models: Iterable[nn.Module], betas=(0.9, 0.999),
+                   eps: float = 1e-8) -> torch.optim.AdamW:
+    """One AdamW over the models' parameters in two groups, with and without
+    weight decay; lr and wd are set by ``set_lr_wd`` before every step."""
+    decay, no_decay = [], []
+    for model in models:
+        for name, p in model.named_parameters():
+            (decay if decays(name, p) else no_decay).append(p)
+    groups = [{"params": decay, "weight_decay": 0.0, "decay": True},
+              {"params": no_decay, "weight_decay": 0.0, "decay": False}]
+    return torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas), eps=eps)
+
+
+def set_lr_wd(optimizer: torch.optim.Optimizer, lr: float, wd: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+        group["weight_decay"] = wd if group["decay"] else 0.0
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """L2 norm over all gradients (f32)."""
+    if not grads:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """torch.nn.utils.clip_grad_norm_ semantics on a precomputed norm."""
+    torch._foreach_mul_(grads, torch.clamp(max_norm / (norm + 1e-6), max=1.0))
+
+
+@torch.no_grad()
+def ema_update_(target: nn.Module, online: nn.Module, m: float) -> None:
+    """target <- m * target + (1 - m) * online, over all parameters."""
+    tgt = list(target.parameters())
+    src = list(online.parameters())
+    torch._foreach_mul_(tgt, m)
+    torch._foreach_add_(tgt, src, alpha=1.0 - m)

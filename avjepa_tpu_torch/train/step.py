@@ -1,11 +1,44 @@
-"""Training-step pieces that the serving path shares with pretraining.
+"""The JEPA train step: target / context / predictor forward, masked L1 loss
+with the variance regulariser, backward, per-model grad clip, AdamW, and the
+EMA target update.
 
-Counterpart of part of ``avjepa_tpu/train/step.py``.
+Counterpart of ``avjepa_tpu/train/step.py`` (reference:
+app/avjepa/train.py:435-537). Every schedule is a function of
+``state.step``; masks are dense bools, plus the compact index arrays of the
+collator. PyTorch runs it eagerly: the attention layers launch the port's
+CUDA kernels on the GPU, forward and backward.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
+
+from avjepa_tpu_torch.models.predictor import scatter_rows
+from avjepa_tpu_torch.train.optim import (
+    ScheduleConfig,
+    clip_,
+    decays,
+    ema_at_step,
+    ema_update_,
+    global_norm,
+    lr_at_step,
+    set_lr_wd,
+    wd_at_step,
+)
+from avjepa_tpu_torch.train.state import TrainState
+from avjepa_tpu_torch.utils.tensors import masked_mean, masked_var
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    loss_exp: float = 1.0
+    reg_coeff: float = 0.0
+    clip_grad: Optional[float] = 10.0
+    warmup_epochs: int = 40  # grad clip enabled only after this many epochs
+    ipe: int = 300
 
 
 def feature_layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -15,3 +48,139 @@ def feature_layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = h.mean(-1, keepdim=True)
     var = h.var(-1, keepdim=True, unbiased=False)
     return (h - mean) * torch.rsqrt(var + eps)
+
+
+def jepa_loss(z: torch.Tensor, h: torch.Tensor, pred_mask: torch.Tensor,
+              loss_exp: float) -> torch.Tensor:
+    """Masked ``mean(|z-h|^loss_exp)/loss_exp`` over target positions
+    (reference: app/avjepa/train.py:490-495)."""
+    diff = (z.float() - h.float()).abs() ** loss_exp
+    return masked_mean(diff, pred_mask[..., None]) / loss_exp
+
+
+def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_masks,
+            enc_idx=None, union_idx=None):
+    """(loss, loss_jepa, loss_reg) of one batch; enc_masks/pred_masks
+    [M, B, N] bool, enc_idx a sequence of M [B, K_i] or None, union_idx
+    [M, B, Ku] or None."""
+    num_cfgs, b, n = enc_masks.shape
+    encoder, predictor = state.encoder, state.predictor
+
+    # target: full-sequence EMA encoder, feature-dim LN, no gradients
+    with torch.no_grad():
+        h = feature_layer_norm(state.target_encoder(video, audio).float())
+
+    def encode_ctx(i):
+        if enc_idx is not None:
+            # compacted: encode only the kept tokens (a K bucket), scatter back
+            idx = enc_idx[i]
+            ctx_c = encoder(video, audio, key_mask=idx < n, gather_idx=idx)
+            return scatter_rows(ctx_c, idx, n)
+        return encoder(video, audio, key_mask=enc_masks[i])
+
+    if num_cfgs > 1:
+        # every mask config through ONE predictor pass, merged batch-major
+        # ([b0cfg0, b0cfg1, b1cfg0, ...]) with a per-sample mask-token index,
+        # then split by reshape (avjepa_tpu/train/step.py:170-199)
+        ctx_all = torch.stack([encode_ctx(i) for i in range(num_cfgs)], 1)
+        ctx_all = ctx_all.reshape(b * num_cfgs, n, ctx_all.shape[-1])
+        enc_all = enc_masks.transpose(0, 1).reshape(b * num_cfgs, n)
+        pred_all = pred_masks.transpose(0, 1).reshape(b * num_cfgs, n)
+        midx = torch.arange(num_cfgs, device=enc_masks.device).repeat(b)
+        u_all = None
+        if union_idx is not None:
+            u_all = union_idx.transpose(0, 1).reshape(b * num_cfgs, union_idx.shape[-1])
+        z_all = predictor(ctx_all, enc_all, pred_all, midx, gather_idx=u_all)
+        zs = z_all.reshape(b, num_cfgs, n, z_all.shape[-1]).unbind(1)
+    else:
+        zs = [predictor(encode_ctx(0), enc_masks[0], pred_masks[0], 0,
+                        gather_idx=None if union_idx is None else union_idx[0])]
+
+    loss_jepa = 0.0
+    pstd = 0.0
+    for i, z in enumerate(zs):
+        loss_jepa = loss_jepa + jepa_loss(z, h, pred_masks[i], cfg.loss_exp)
+        # predictor std across target tokens (reference reg_fn, train.py:497-498)
+        zv = masked_var(z.float(), pred_masks[i][..., None], dim=1)
+        pstd = pstd + torch.sqrt(zv + 1e-4)
+    loss_jepa = loss_jepa / num_cfgs
+    loss_reg = torch.relu(1.0 - pstd / num_cfgs).mean()
+    return loss_jepa + cfg.reg_coeff * loss_reg, loss_jepa, loss_reg
+
+
+def _grads(module: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
+    return [(n, p.grad) for n, p in module.named_parameters() if p.grad is not None]
+
+
+def grad_stats(named_grads) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference grad_logger (src/utils/logging.py:91-105): the mean of the
+    per-parameter grad norms over non-bias params of 2+ dimensions, and the
+    first and last block's qkv weight grad norm."""
+    kept = [(n, g) for n, g in named_grads if decays(n, g)]
+    norms = torch._foreach_norm([g for _, g in kept]) if kept else []
+    by_name = dict(zip((n for n, _ in kept), norms))
+    qkv = sorted((n for n in by_name if n.endswith("attn.qkv.weight")),
+                 key=lambda n: int(n.split(".")[1]))
+    z = torch.zeros((), device=norms[0].device if norms else "cpu")
+    avg = torch.stack(norms).mean() if norms else z
+    return avg, by_name[qkv[0]] if qkv else z, by_name[qkv[-1]] if qkv else z
+
+
+def _abs_mean(optimizer: torch.optim.Optimizer, module: torch.nn.Module, key: str):
+    """Mean over the module's params of mean |moment| (reference
+    adamw_logger, src/utils/logging.py:108-118)."""
+    vals = [optimizer.state[p][key].abs().mean() for p in module.parameters()
+            if p in optimizer.state]
+    return torch.stack(vals).mean()
+
+
+def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video, audio,
+               enc_masks, pred_masks, enc_idx=None, union_idx=None,
+               full_metrics: bool = True) -> dict:
+    """One step in place on ``state``; returns its metrics as Python numbers.
+
+    ``full_metrics=False`` skips the diagnostics read only at log boundaries
+    (per-parameter grad norms, optimizer moments, input variance)."""
+    step = state.step
+    lr, wd = lr_at_step(sched, step), wd_at_step(sched, step)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
+                                        enc_idx, union_idx)
+    loss.backward()
+
+    # per-model global norms; the clip only after warmup (reference:
+    # train.py:518-520)
+    enc_g, pred_g = _grads(state.encoder), _grads(state.predictor)
+    enc_norm = global_norm([g for _, g in enc_g])
+    pred_norm = global_norm([g for _, g in pred_g])
+    if cfg.clip_grad is not None and step // cfg.ipe > cfg.warmup_epochs:
+        clip_([g for _, g in enc_g], enc_norm, cfg.clip_grad)
+        clip_([g for _, g in pred_g], pred_norm, cfg.clip_grad)
+
+    set_lr_wd(state.optimizer, lr, wd)
+    state.optimizer.step()
+    m = ema_at_step(sched, step)
+    ema_update_(state.target_encoder, state.encoder, m)
+    state.step = step + 1
+
+    scalars = {"loss": loss, "loss_jepa": loss_jepa, "loss_reg": loss_reg,
+               "enc_grad_norm": enc_norm, "pred_grad_norm": pred_norm}
+    if full_metrics:
+        enc_avg, enc_first, enc_last = grad_stats(enc_g)
+        var = video.float().flatten(1).var(1, unbiased=False)
+        scalars.update({
+            "enc_grad_avg": enc_avg,
+            "enc_grad_first_qkv": enc_first,
+            "enc_grad_last_qkv": enc_last,
+            "pred_grad_avg": grad_stats(pred_g)[0],
+            "opt_mu_abs": _abs_mean(state.optimizer, state.encoder, "exp_avg"),
+            "opt_nu_abs": _abs_mean(state.optimizer, state.encoder, "exp_avg_sq"),
+            "input_var": var.mean(),
+            "input_var_min": var.min(),
+        })
+    values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
+                          for v in scalars.values()]).tolist()  # one device sync
+    metrics = dict(zip(scalars, values))
+    metrics.update(lr=lr, wd=wd, ema=m,
+                   mask_sizes=enc_masks[:, 0, :].sum(1).float().tolist())
+    return metrics

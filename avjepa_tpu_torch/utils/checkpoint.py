@@ -1,11 +1,16 @@
-"""Weight bridge into the port, and checkpoint reading.
+"""Weight bridge into the port, and checkpoints.
 
-The port's modules carry the reference state-dict keys, so both directions
-reuse ``avjepa_tpu.utils.torch_import`` (numpy only, no JAX) and add no
-mapping code:
-- ``encoder_from_jax_params``: flax encoder params (as numpy arrays) ->
-  ``encoder_params_to_state_dict`` -> ``load_state_dict(strict=True)``;
-- ``load_encoder_checkpoint``: a reference-layout ``.pth.tar``.
+The port's modules carry the reference state-dict keys, so the flax bridge is
+the JAX package's own mapping (the port's copy, ``utils/torch_import.py``)
+and adds no mapping code:
+- ``encoder_from_jax_params`` / ``predictor_from_jax_params``: flax params
+  (as numpy arrays) -> ``*_params_to_state_dict`` ->
+  ``load_state_dict(strict=True)``;
+- ``load_encoder_checkpoint``: one encoder of a reference-layout ``.pth.tar``;
+- ``save_train_state`` / ``load_train_state``: the pretrain app's state as the
+  reference writes it (app/avjepa/train.py:332-350): ``encoder``,
+  ``predictor``, ``target_encoder``, ``opt``, ``epoch``, ``loss``,
+  ``batch_size``, ``world_size``, ``lr``, plus ``step``.
 An Orbax checkpoint directory cannot be read without JAX and is refused.
 """
 
@@ -17,7 +22,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from avjepa_tpu.utils.torch_import import encoder_params_to_state_dict, strip_prefixes
+from avjepa_tpu_torch.utils.torch_import import (
+    encoder_params_to_state_dict,
+    predictor_params_to_state_dict,
+    strip_prefixes,
+)
 
 
 def _tensors(sd: dict) -> dict[str, torch.Tensor]:
@@ -30,14 +39,13 @@ def encoder_from_jax_params(module: nn.Module, params: dict) -> nn.Module:
     return module
 
 
-def load_encoder_checkpoint(path: str, prefer: str = "target_encoder") -> dict:
-    """Encoder state dict from a reference-layout ``.pth.tar``.
+def predictor_from_jax_params(module: nn.Module, params: dict) -> nn.Module:
+    """Load flax ``Predictor`` params (mask-token form) into ``module``."""
+    module.load_state_dict(_tensors(predictor_params_to_state_dict(params)), strict=True)
+    return module
 
-    ``prefer`` names the entry to read (``target_encoder``, the EMA encoder,
-    or ``encoder``). DataParallel prefixes are stripped; the fixed sincos pos-embed
-    buffers a reference file may carry are dropped (they are recomputed from
-    the layout).
-    """
+
+def _load(path: str) -> dict:
     if os.path.isdir(path):
         raise ValueError(
             f"{path!r} is a directory (an Orbax checkpoint?): avjepa_tpu_torch reads "
@@ -45,7 +53,53 @@ def load_encoder_checkpoint(path: str, prefer: str = "target_encoder") -> dict:
             "Export one with: python tools/convert_reference_checkpoint.py --export "
             "<orbax dir> <out.pth.tar>"
         )
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if prefer not in ckpt:
-        raise KeyError(f"{path!r} has no '{prefer}' entry; keys: {sorted(ckpt)[:8]}")
-    return {k: v for k, v in strip_prefixes(ckpt[prefer]).items() if "pos_embed" not in k}
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _module_state(ckpt: dict, key: str, path: str) -> dict:
+    """Entry ``key`` with DataParallel prefixes stripped and the fixed sincos
+    pos-embed buffers a reference file may carry dropped (they are
+    recomputed from the layout)."""
+    if key not in ckpt:
+        raise KeyError(f"{path!r} has no '{key}' entry; keys: {sorted(ckpt)[:8]}")
+    return {k: v for k, v in strip_prefixes(ckpt[key]).items() if "pos_embed" not in k}
+
+
+def load_encoder_checkpoint(path: str, prefer: str = "target_encoder") -> dict:
+    """Encoder state dict from a reference-layout ``.pth.tar``; ``prefer``
+    names the entry to read (``target_encoder``, the EMA encoder, or
+    ``encoder``)."""
+    return _module_state(_load(path), prefer, path)
+
+
+def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
+                     lr: float) -> None:
+    """Write ``state`` (a ``train.state.TrainState``) to ``path``, atomically."""
+    out = {
+        "encoder": state.encoder.state_dict(),
+        "predictor": state.predictor.state_dict(),
+        "target_encoder": state.target_encoder.state_dict(),
+        "opt": state.optimizer.state_dict(),
+        "scaler": None,
+        "epoch": epoch,
+        "loss": loss,
+        "batch_size": batch_size,
+        "world_size": 1,
+        "lr": lr,
+        "step": state.step,
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(out, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str, state) -> None:
+    """Restore ``state`` in place from a ``.pth.tar`` written by
+    ``save_train_state`` (a reference file without ``step`` starts at 0)."""
+    ckpt = _load(path)
+    for key, module in (("encoder", state.encoder), ("predictor", state.predictor),
+                        ("target_encoder", state.target_encoder)):
+        module.load_state_dict(_module_state(ckpt, key, path), strict=True)
+    if ckpt.get("opt") is not None:
+        state.optimizer.load_state_dict(ckpt["opt"])
+    state.step = int(ckpt.get("step", 0))

@@ -1,12 +1,21 @@
-"""Which device the apps run on."""
+"""Which device the apps run on: the GPU, unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
 import torch
 
 
-def default_device() -> torch.device:
-    """The first GPU when there is one, else the CPU (tests and tiny runs).
-    On a GPU every attention kernel launches on the card or raises; nothing
-    falls back to the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist. There is
+    no quiet fall back to the CPU: the CPU runs only when it is asked for
+    (``--device cpu``, ``device="cpu"``), as the tests do."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available on this machine; to run on the CPU, ask for it "
+                "with --device cpu (device='cpu')"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device

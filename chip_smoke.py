@@ -7,17 +7,31 @@ Run from the root of a checkout on a machine with one CUDA GPU (Hopper, for
 the sm_90a kernels). Phases, each printed as it runs; any failure raises and
 exits non-zero:
   1. toolchain and card (torch, CUDA, nvcc, triton, nvidia-smi);
-  2. build the CUDA kernels from avjepa_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, bf16 and
-     f32, at the serving path's shapes, then kernel and plain times;
+  2. build the CUDA kernels from avjepa_tpu_torch/csrc, one nvcc per source,
+     all started together;
+  3. each kernel against its plain PyTorch version on the card: the forward
+     kernels in bf16, f16 and f32 at the serving shapes, the backward
+     kernels in bf16 and f32 at the training slice's shapes (with sentinel
+     tails, an empty batch row, ragged N and saturated logits); then each
+     kernel's time beside its plain version's, one PyTorch library call's
+     (scaled_dot_product_attention, forward or backward) and its bound;
   4. the extract app through its CLI entry: ViT-L/16 AV, bf16, batch 24,
      96 synthetic clips of 16x224^2 video + 128x192 mel (1664 tokens), from
      a random encoder; then vit_tiny (3 heads, the classic kernel) for one
-     batch. Launch counts prove both runs went through the kernels; one
-     batch is re-encoded through the plain attention and compared.
-The last lines are a JSON kernel table, the card's name and power limit,
-and {"ok": true, "device": {...}}. Without a GPU it exits 1 and prints no
-result.
+     batch; one batch is re-encoded through the plain attention and compared;
+  5. the pretrain app: ViT-L/16 AV (av-vitl16.yaml: bf16, batch 24, remat,
+     synthetic clips) for 6 steps through train.pretrain, then the extract
+     app reading its checkpoint's target encoder; vit_tiny (av-vitt16.yaml,
+     all four kernels) for 2 steps through the CLI entry. CSV rows,
+     checkpoints and finite losses are checked;
+  6. one ViT-L step at batch 4 through the kernels against the same step
+     through the plain attention (loss and grad norms);
+  7. the ViT-L step on a resident batch of 24 (CUDA events, peak memory,
+     a torch.profiler window), with remat and without.
+Every run of phases 4-5 is driven with the kernels' launch counts set to 0
+just before it and asserted just after. The last lines are a JSON kernel
+table, the card's name and power limit, and {"ok": true, "device": {...}}.
+Without a GPU it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ import contextlib
 import importlib.util
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -33,13 +48,26 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CU_SOURCE = "avjepa_tpu_torch/csrc/attention_fwd.cu"
+FWD_SOURCE = "avjepa_tpu_torch/csrc/attention_fwd.cu"
+BWD_SOURCE = "avjepa_tpu_torch/csrc/attention_bwd.cu"
 
 # max abs error of kernel vs plain version, (out, lse). bf16/f16: the two
 # share every rounding point, but their f32 sums run in other orders, which
 # can flip an output's last bit (2^-7 in bf16, 2^-10 in f16, near |out| = 2).
 # f32: sums over up to 1664 keys in another order than cuBLAS's.
 TOL = {"bfloat16": (2e-2, 1e-3), "float16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+# max abs error of a backward kernel against its plain version, relative to
+# max|plain|. bf16: the two share every rounding point (q*scale, k*scale, p and
+# ds rounded to bf16 before their products, outputs rounded once), but their
+# f32 sums run in other orders, which can move one rounding of p or ds by a
+# bf16 ulp (2^-8 relative) and an output by an ulp: 2e-2. f32: sums over up to
+# 1664 keys in other orders, and ds = p * (dp - delta) cancels: 1e-4.
+BWD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# H100 SXM dense bf16 tensor-core peak and HBM3 rate (NVIDIA's data sheet), for
+# the bound of each kernel (the larger of its operations and its bytes over
+# these rates)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # relative L2 error of the pooled ViT-L features, kernel vs plain attention,
 # in bf16: same rounding points, other summation orders, over 24 layers
 POOLED_REL_TOL = 2e-2
@@ -163,6 +191,113 @@ def check_kernels() -> dict:
     return main_err
 
 
+def _key_mask(gen, b: int, n: int, kind):
+    """None, a sentinel tail (the compacted context: the first 7/8 of the
+    keys valid), or random keys (p = 0.8) with a sentinel tail and batch row
+    0 fully masked (the compacted predictor's union, and an empty row)."""
+    import torch
+
+    if kind is None:
+        return None
+    mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    mask[:, n - n // 8:] = False
+    if kind == "random":
+        mask &= torch.rand((b, n), generator=gen, device="cuda") < 0.8
+        mask[0] = False
+    return mask
+
+
+def check_bwd_kernels() -> dict:
+    """Each backward kernel against its plain version at the training
+    slice's shapes, bf16 and f32; returns the bf16 max abs error at the main
+    shape of each."""
+    import torch
+
+    from avjepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def compare(name, dtype, got, want):
+        tol = BWD_REL_TOL[str(dtype).split(".")[-1]]
+        errs = []
+        for g, w in zip(got, want):
+            errs.append(_max_err(g, w) / max(w.float().abs().max().item(), 1e-30))
+        ok = max(errs) <= tol
+        print(f"  {name} {str(dtype).split('.')[-1]}: max|err|/max|plain| "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return max(_max_err(g, w) for g, w in zip(got, want))
+
+    main_err = {}
+    print("backward kernels vs plain versions:")
+    for dtype in (torch.bfloat16, torch.float32):
+        # K2, packed qkv: (label, B, N, H, d, mask)
+        for label, b, n, h, d, kind in (
+            ("context", 24, 512, 16, 64, "tail"),
+            ("predictor", 48, 1408, 16, 24, "random"),
+            ("vit_tiny predictor", 48, 1408, 3, 128, "random"),
+            ("ragged", 2, 200, 16, 64, None),
+        ):
+            qkv = randn((b, n, 3 * h * d), dtype)
+            dout = randn((b, n, h * d), dtype)
+            mask = _key_mask(gen, b, n, kind)
+            out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
+            got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask)
+            c = h * d
+            err = compare(f"attn_bwd_packed {label} B={b} N={n} H={h} d={d}", dtype,
+                          [got[..., i * c:(i + 1) * c] for i in range(3)],
+                          [want[..., i * c:(i + 1) * c] for i in range(3)])
+            if kind == "random" and got[0].abs().max().item() != 0.0:
+                raise AssertionError("attn_bwd_packed: a fully-masked batch row has a gradient")
+            if dtype == torch.bfloat16 and label == "predictor":
+                main_err["bwd_packed"] = err
+            del qkv, dout, out, lse, got, want
+        # K2 with saturated logits: query rows 0-7 see every logit above the
+        # clamp, so their ds, and so their dq, is exactly 0
+        b, n, h, d = 2, 256, 4, 32
+        c = h * d
+        qkv = randn((b, n, 3 * c), dtype)
+        qkv[:, :, c:2 * c] = qkv[:, :, c:2 * c].abs() + 0.5
+        qkv[:, :8, :c] = 32.0  # s >= 32 * 32**-0.5 * 32 * 0.5 > 80
+        dout = randn((b, n, c), dtype)
+        out, lse = fa.flash_attention_qkv_fwd(qkv, h)
+        got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h)
+        s = (qkv[:, :, :c].float() * d**-0.5).reshape(b, n, h, d)
+        s = torch.einsum("bqhd,bkhd->bhqk", s, qkv[:, :, c:2 * c].float().reshape(b, n, h, d))
+        if not bool((s[:, :, :8] > fa.SOFTMAX_CLAMP).all()):
+            raise AssertionError("saturated case: rows 0-7 do not saturate")
+        compare("attn_bwd_packed saturated B=2 N=256 H=4 d=32", dtype,
+                [got[..., i * c:(i + 1) * c] for i in range(3)],
+                [want[..., i * c:(i + 1) * c] for i in range(3)])
+        zeros = want == 0
+        if not bool(zeros[:, :8, :c].all()) or not bool((got[zeros] == 0).all()):
+            raise AssertionError("attn_bwd_packed: saturated logits have a gradient")
+        # K4, classic [B, H, N, d], one fully-masked 128-key block
+        for n in (1664, 512):
+            b, h, d = 24, 3, 64
+            q, k, v, dout = (randn((b, h, n, d), dtype) for _ in range(4))
+            mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+            mask[:, 128:256] = False
+            out, lse = fa.flash_attention_fwd(q, k, v, mask)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, mask)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask)
+            err = compare(f"attn_bwd B={b} H={h} N={n} d={d} masked", dtype, got, want)
+            if not bool((got[1][:, :, 128:256] == 0).all()):
+                raise AssertionError("attn_bwd: masked keys have a dk")
+            if dtype == torch.bfloat16 and n == 512:
+                main_err["bwd"] = err
+    return main_err
+
+
 def _time_ms(fn, iters: int) -> float:
     import torch
 
@@ -178,28 +313,87 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms on an H100 SXM, what bounds it) for bf16 work."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def time_kernels() -> dict:
-    """bf16 kernel and plain times at the serving path's shapes."""
+    """bf16 kernel, plain and library (SDPA) times at each kernel's main
+    shape, with its bound: {key: (ms, plain_ms, library_ms, bound_ms,
+    bound_by)}. Work counts only valid keys (masked key tiles are skipped)."""
     import torch
+    import torch.nn.functional as F
 
     from avjepa_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, n, d = 24, 1664, 64
-    qkv = torch.randn((b, n, 3 * 16 * d), generator=gen, device="cuda").bfloat16()
-    q, k, v = (torch.randn((b, 3, n, d), generator=gen, device="cuda").bfloat16()
-               for _ in range(3))
-    times = {
-        "fwd_packed": (_time_ms(lambda: fa.flash_attention_qkv_fwd(qkv, 16), 20),
-                       _time_ms(lambda: fa.flash_attention_qkv_ref(qkv, 16), 5)),
-        "fwd": (_time_ms(lambda: fa.flash_attention_fwd(q, k, v), 20),
-                _time_ms(lambda: fa.flash_attention_ref(q, k, v), 5)),
-    }
-    for name, heads in (("fwd_packed", 16), ("fwd", 3)):
-        ms, plain = times[name]
-        tflops = 4 * b * heads * n * n * d / (ms * 1e-3) / 1e12
-        print(f"time {name} bf16 B={b} H={heads} N={n} d={d}: kernel {ms:.3f} ms "
-              f"({tflops:.1f} TFLOP/s), plain {plain:.3f} ms")
+    bf = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    def sdpa_inputs(q, k, v, mask):
+        q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+        m4 = None if mask is None else mask[:, None, None, :]
+        return q, k, v, m4
+
+    def sdpa_bwd_ms(q, k, v, mask):
+        q, k, v, m4 = sdpa_inputs(q, k, v, mask)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=m4)
+        g = torch.randn_like(o)
+        return _time_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 10)
+
+    def sdpa_fwd_ms(q, k, v, mask):
+        q, k, v, m4 = sdpa_inputs(q, k, v, mask)
+        with torch.no_grad():
+            return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4), 10)
+
+    times = {}
+    # K1: the target encoder's unmasked layer; K2: a predictor layer
+    for key, b, n, h, d, kind in (("fwd_packed", 24, 1664, 16, 64, None),
+                                  ("bwd_packed", 48, 1408, 16, 24, "random")):
+        qkv, dout = randn((b, n, 3 * h * d)), randn((b, n, h * d))
+        mask = _key_mask(gen, b, n, kind)
+        valid = b * n if mask is None else int(mask.sum().item())
+        out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
+        q, k, v = fa._split_qkv(qkv, h)
+        io = 4 * b * n * h * d * 2 + b * h * n * 4  # qkv read, out written; lse f32
+        if key == "fwd_packed":
+            run = (lambda: fa.flash_attention_qkv_fwd(qkv, h, mask),
+                   lambda: fa.flash_attention_qkv_ref(qkv, h, mask))
+            lib = sdpa_fwd_ms(q, k, v, mask)
+            bound = _bound(4 * h * d * n * valid, io)
+        else:
+            run = (lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask),
+                   lambda: fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask))
+            lib = sdpa_bwd_ms(q, k, v, mask)
+            # reads qkv, out, dO, lse, bias; writes dqkv
+            bound = _bound(10 * h * d * n * valid,
+                           (8 * b * n * h * d) * 2 + b * h * n * 4 + b * n * 4)
+        times[key] = (_time_ms(run[0], 20), _time_ms(run[1], 3), lib, *bound)
+        del qkv, dout, out, lse, q, k, v
+    # K3: the vit_tiny target encoder; K4: a vit_tiny context layer
+    for key, b, h, n, d in (("fwd", 24, 3, 1664, 64), ("bwd", 24, 3, 512, 64)):
+        q, k, v, dout = (randn((b, h, n, d)) for _ in range(4))
+        mask = None if key == "fwd" else _key_mask(gen, b, n, "tail")
+        valid = b * n if mask is None else int(mask.sum().item())
+        out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        if key == "fwd":
+            run = (lambda: fa.flash_attention_fwd(q, k, v, mask),
+                   lambda: fa.flash_attention_ref(q, k, v, mask))
+            lib = sdpa_fwd_ms(q, k, v, mask)
+            bound = _bound(4 * h * d * n * valid, 4 * b * h * n * d * 2 + b * h * n * 4)
+        else:
+            run = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask),
+                   lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask))
+            lib = sdpa_bwd_ms(q, k, v, mask)
+            bound = _bound(10 * h * d * n * valid, 8 * b * h * n * d * 2 + b * h * n * 4)
+        times[key] = (_time_ms(run[0], 20), _time_ms(run[1], 3), lib, *bound)
+    for key, (ms, plain, lib, bound, by) in times.items():
+        print(f"time {key} bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, library (SDPA) "
+              f"{lib:.3f} ms, bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of the bound")
     return times
 
 
@@ -299,6 +493,214 @@ def run_slice(workdir: str) -> dict:
     return launches
 
 
+def _pretrain_cfg(name: str, workdir: str, **over) -> dict:
+    """A pretrain YAML of the repo with synthetic clips, logging into
+    ``workdir``; ``over`` updates sections."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs/pretrain", name)) as f:
+        d = yaml.safe_load(f)
+    d["data"].update(source="synthetic", datasets=[], num_workers=8)
+    d["logging"].update(folder=os.path.join(workdir, name.split(".")[0]), log_freq=1)
+    for section, values in over.items():
+        d[section].update(values)
+    return d
+
+
+def _check_run(folder: str, tag: str, steps: int) -> tuple[list, list]:
+    """The CSV rows and the checkpoint of a pretrain run; returns its losses
+    and iteration times (ms, data wait included)."""
+    import csv
+
+    with open(os.path.join(folder, f"{tag}_r0.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if len(rows) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: CSV has {len(rows)} rows, losses {losses}")
+    if not os.path.getsize(os.path.join(folder, f"{tag}-latest.pth.tar")):
+        raise AssertionError(f"{tag}: no checkpoint written")
+    return losses, [float(r["iter-time-ms"]) for r in rows]
+
+
+def run_train(workdir: str) -> dict:
+    """The training slice through the port's entry points: ViT-L/16 AV
+    (av-vitl16.yaml, bf16, batch 24, remat) for 6 steps through
+    train.pretrain.run, then vit_tiny (av-vitt16.yaml) for 2 steps through the
+    CLI entry. Asserts the launch counts of each run, finite losses, the CSV
+    rows and the .pth.tar, and that the extract app reads the ViT-L
+    checkpoint's target encoder. Returns the launch counts of each run."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from avjepa_tpu_torch.app.main import launch
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.registry import app_main
+    from avjepa_tpu_torch.serve import extract as ext
+    from avjepa_tpu_torch.train import pretrain
+
+    steps = 6
+    d = _pretrain_cfg("av-vitl16.yaml", workdir)
+    cfg = load_config(d)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    summary = pretrain.run(cfg, max_steps=steps, device="cuda")
+    wall = time.perf_counter() - t0
+    vitl = dict(fa.LAUNCHES)
+    # per step: fwd_packed 24 (target) + 2 x 24 (context) + 12 (predictor),
+    # plus the per-block recompute of the 60 trained layers under remat;
+    # bwd_packed 2 x 24 + 12
+    want = {"fwd_packed": steps * (84 + (60 if cfg.tpu.remat else 0)),
+            "bwd_packed": steps * 60, "fwd": 0, "bwd": 0}
+    print(f"train: ViT-L AV launches {vitl} (expected {want})")
+    if vitl != want:
+        raise AssertionError("ViT-L pretrain launch counts differ")
+    folder, tag = cfg.logging.folder, cfg.logging.write_tag
+    losses, iter_ms = _check_run(folder, tag, steps)
+    later = iter_ms[1:]
+    print(f"train: ViT-L AV {steps} steps, losses {losses}; iteration ms {iter_ms}; "
+          f"end to end after the first step {1000 * cfg.data.batch_size * len(later) / sum(later):.2f} "
+          f"clips/s; summary {summary}; {wall:.1f} s for the app (init, data and "
+          f"checkpoint included)")
+
+    # the port's extract reads that checkpoint's target encoder
+    ckpt = os.path.join(folder, f"{tag}-latest.pth.tar")
+    with open(os.path.join(ROOT, "configs/extract/vitl16_extract.yaml")) as f:
+        xd = yaml.safe_load(f)
+    xd["meta"]["read_checkpoint"] = ckpt
+    xd["data"].update(source="synthetic", datasets=[], num_workers=8)
+    xd["extract"].update(allow_random=False, limit=24)
+    xd["logging"]["folder"] = os.path.join(workdir, "extract_ckpt")
+    encoder = ext.build_encoder(load_config(xd), torch.device("cuda", 0))
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["target_encoder"]
+    key = "blocks.23.attn.qkv.weight"
+    if not torch.equal(encoder.state_dict()[key].cpu(), saved[key]):
+        raise AssertionError("extract did not read the checkpoint's target encoder")
+    del encoder, saved
+    out = app_main("extract", xd, device="cuda")
+    emb = np.load(os.path.join(out["output"], "features_r0.npz"))["embeddings"]
+    if emb.shape != (24, 1024) or not np.all(np.isfinite(emb)):
+        raise AssertionError("extract from the pretrain checkpoint wrote bad features")
+    print(f"train: extract read {ckpt} (target_encoder) and wrote {emb.shape} finite features")
+
+    # vit_tiny through the CLI: 3 heads of 64 do not pack (classic K3/K4);
+    # its predictor's 3 heads of 128 do (K1/K2)
+    d = _pretrain_cfg("av-vitt16.yaml", workdir, optimization={"ipe": 2, "epochs": 1})
+    path = os.path.join(workdir, "vitt_pretrain.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    fa.reset_launches()
+    launch(path)
+    vitt = dict(fa.LAUNCHES)
+    # per step: fwd 12 (target) + 2 x 12 (context) + 24 recomputed, bwd 24;
+    # fwd_packed 12 (predictor) + 12 recomputed, bwd_packed 12
+    want = {"fwd": 2 * 60, "bwd": 2 * 24, "fwd_packed": 2 * 24, "bwd_packed": 2 * 12}
+    print(f"train: vit_tiny launches {vitt} (expected {want})")
+    if vitt != want:
+        raise AssertionError("vit_tiny pretrain launch counts differ")
+    losses, _ = _check_run(d["logging"]["folder"], d["logging"]["write_tag"], 2)
+    print(f"train: vit_tiny 2 steps through the CLI, losses {losses}")
+    return {"vitl": vitl, "vitt": vitt}
+
+
+# one bf16 step through the kernels against the same step through the plain
+# attention (same batch, masks and weights): they share every rounding point
+# but sum in other orders, which moves bf16 roundings by an ulp (2^-8) here
+# and there through 24 + 12 layers forward and backward
+STEP_LOSS_REL_TOL = 1e-2
+STEP_NORM_REL_TOL = 5e-2
+
+
+def check_train_vs_plain(workdir: str, batch: int = 4) -> None:
+    """Loss and encoder/predictor grad norms of one ViT-L AV step, kernel
+    path against plain attention, at a batch where the plain path fits."""
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.optim import global_norm
+    from avjepa_tpu_torch.train.step import loss_fn
+
+    cfg = load_config(_pretrain_cfg("av-vitl16.yaml", workdir, data={"batch_size": batch}))
+    h = pretrain.setup(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    inputs = h.to_device(video, audio, masks)
+
+    def once():
+        h.state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(h.state, h.step_cfg, **inputs)[0]
+        loss.backward()
+        norms = [global_norm([p.grad for p in m.parameters() if p.grad is not None]).item()
+                 for m in (h.state.encoder, h.state.predictor)]
+        return [loss.item(), *norms]
+
+    kernel = once()
+    with plain_packed_attention():
+        plain = once()
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel, plain)]
+    print(f"train: one ViT-L step at batch {batch}, kernel vs plain attention: "
+          f"loss {kernel[0]:.6f} vs {plain[0]:.6f}, enc grad norm {kernel[1]:.4e} vs "
+          f"{plain[1]:.4e}, pred grad norm {kernel[2]:.4e} vs {plain[2]:.4e}; rel "
+          f"{', '.join(f'{r:.2e}' for r in rel)} (tol {STEP_LOSS_REL_TOL:g}, "
+          f"{STEP_NORM_REL_TOL:g})")
+    if rel[0] > STEP_LOSS_REL_TOL or max(rel[1:]) > STEP_NORM_REL_TOL:
+        raise AssertionError("kernel-path step disagrees with the plain-attention step")
+
+
+def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
+    """ViT-L AV train step on a resident batch of 24, with per-block remat
+    (the YAML's setting) or without: ms by CUDA events, clips/s, peak memory;
+    with remat, then a torch.profiler window of 2 steps, with the device time
+    by kernel written to chiprun_out/train_profile.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+
+    cfg = load_config(_pretrain_cfg("av-vitl16.yaml", workdir, tpu={"remat": remat}))
+    h = pretrain.setup(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    inputs = h.to_device(video, audio, masks)
+
+    def run():
+        train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(run, steps)
+    peak = torch.cuda.max_memory_allocated()
+    b = cfg.data.batch_size
+    print(f"train: ViT-L AV step {ms:.1f} ms on a resident batch of {b} (CUDA events, "
+          f"{steps} steps), {1000 * b / ms:.2f} clips/s; peak allocated "
+          f"{peak / 2**30:.2f} GiB; remat {cfg.tpu.remat}")
+    result = {"step_ms": ms, "clips_per_s": 1000 * b / ms, "peak_gib": peak / 2**30}
+    if not remat:
+        return result
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "train_profile.txt"), "w") as f:
+        f.write(table)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / 2e3  # ms per step
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"train: profile, {total:.1f} ms of device kernels per step; top: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 2e3:.2f} ms" for e in top))
+    return result
+
+
 def main() -> None:
     try:
         import torch
@@ -311,19 +713,32 @@ def main() -> None:
 
     toolchain()
     build()
-    errs = check_kernels()
+    errs = {**check_kernels(), **check_bwd_kernels()}
     times = time_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = run_slice(workdir)
+        run_slice(workdir)
+        train = run_train(workdir)
+        check_train_vs_plain(workdir)
+        time_train_step(workdir, remat=True)
+        time_train_step(workdir, remat=False)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": CU_SOURCE,
-         "replaces": f"avjepa_tpu/ops/flash_attention.py:{line}",
-         "launches": launches[key], "max_abs_err": errs[key],
-         "ms": times[key][0], "plain_ms": times[key][1]}
-        for name, key, line in (("attn_fwd_packed", "fwd_packed", 459),
-                                ("attn_fwd", "fwd", 77))
-    ]
+    # launches: each kernel's count in this slice's run that uses it (ViT-L
+    # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)
+    kernels = []
+    for name, key, source, line in (
+        ("attn_fwd_packed", "fwd_packed", FWD_SOURCE, 459),
+        ("attn_bwd_packed", "bwd_packed", BWD_SOURCE, 510),
+        ("attn_fwd", "fwd", FWD_SOURCE, 77),
+        ("attn_bwd", "bwd", BWD_SOURCE, 196),
+    ):
+        ms, plain, lib, bound, by = times[key]
+        run = train["vitl"] if key.endswith("packed") else train["vitt"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"avjepa_tpu/ops/flash_attention.py:{line}",
+            "launches": run[key], "max_abs_err": errs[key], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

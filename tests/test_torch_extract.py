@@ -1,9 +1,10 @@
 """The port's serving slice (avjepa_tpu_torch's extract app) as a whole.
 
-(a) the app end to end on the CPU, with what tests/test_extract.py asserts of
-the JAX app; (b) the port's app against the JAX app on the same weights and
-rows; (c) the port imports no JAX; and the host-side pieces it shares or
-re-implements (sampler, feature LN, checkpoint reading) against the JAX ones.
+(a) the app end to end on the CPU (asked for with device="cpu"), with what
+tests/test_extract.py asserts of the JAX app; (b) the port's app against the
+JAX app on the same weights and rows; (c) the port imports neither JAX nor
+the JAX package; and the host-side pieces it re-implements (sampler,
+feature LN, checkpoint reading) against the JAX ones.
 """
 
 import json
@@ -57,7 +58,7 @@ def _cfg(folder, crop=32, **over):
 
 
 def test_extract_synthetic_mean(tmp_path):
-    out = app_main("extract", _cfg(tmp_path))
+    out = app_main("extract", _cfg(tmp_path), device="cpu")
     # limit=10 at batch 4 -> 3 batches (12 rows, 2 wrap-padded duplicates),
     # exactly 10 unique rows written
     assert out["rows_written"] == 10 and out["rows_total"] == 10
@@ -75,7 +76,7 @@ def test_extract_synthetic_mean(tmp_path):
 
 def test_extract_tokens_chunks(tmp_path):
     d = _cfg(tmp_path, extract={"pooling": "tokens", "limit": 6, "chunk_rows": 4})
-    out = app_main("extract", d)
+    out = app_main("extract", d, device="cpu")
     files = sorted(f for f in os.listdir(out["output"]) if f.startswith("tokens_r0_"))
     assert out["rows_written"] == 6 and out["chunked"] and len(files) == 2  # 4 + 2
     shapes = [np.load(os.path.join(out["output"], f))["embeddings"].shape for f in files]
@@ -106,7 +107,7 @@ def test_extract_matches_jax_app(tmp_path):
     d_port = _cfg(tmp_path / "port", crop=64, tpu={"attn_impl": "flash"},
                   extract={"limit": 5, "allow_random": False},
                   meta={"read_checkpoint": str(ckpt)})
-    got = app_main("extract", d_port)
+    got = app_main("extract", d_port, device="cpu")
     zj = np.load(os.path.join(want["output"], "features_r0.npz"))
     zp = np.load(os.path.join(got["output"], "features_r0.npz"))
     np.testing.assert_array_equal(zp["indices"], zj["indices"])
@@ -115,16 +116,21 @@ def test_extract_matches_jax_app(tmp_path):
 
 
 def test_package_imports_no_jax():
-    """Every module of avjepa_tpu_torch imports, and none of them pulls in
-    JAX or flax, directly or through what it imports."""
+    """Every module of avjepa_tpu_torch imports, then chip_smoke; none of
+    them pulls in JAX (or flax, optax, orbax) or any module of the JAX
+    package avjepa_tpu, directly or through what it imports."""
     code = (
         "import importlib, pkgutil, sys, avjepa_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(avjepa_tpu_torch.__path__, "
         "'avjepa_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
-        "assert len(mods) >= 20 and not bad, (len(mods), bad)\n"
+        "def bad():\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') or m == 'avjepa_tpu' "
+        "or m.startswith('avjepa_tpu.'))\n"
+        "assert len(mods) >= 30 and not bad(), (len(mods), bad())\n"
+        "import chip_smoke\n"
+        "assert not bad(), bad()\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -194,9 +200,9 @@ def test_feature_layer_norm_matches_jax():
 
 def test_unported_apps_and_orbax_dirs_are_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        app_main("avjepa", {})
+        app_main("avprediction", {})
     with pytest.raises(ValueError, match="Orbax"):
         load_encoder_checkpoint(str(tmp_path))
     d = _cfg(tmp_path, extract={"allow_random": False})
     with pytest.raises(ValueError, match="read_checkpoint"):
-        app_main("extract", d)
+        app_main("extract", d, device="cpu")
