@@ -42,7 +42,7 @@ class Encoder(nn.Module):
         self.remat = remat
         self.patch_embed = AVPatchEmbed(layout, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attn_impl=attn_impl, gelu=gelu)
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl=attn_impl, gelu=gelu, dtype=dtype)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)

@@ -1,11 +1,14 @@
-"""Transformer primitives: Mlp, Attention and the pre-LN Block.
+"""Transformer primitives: Mlp, Attention, the pre-LN Block and
+FastLayerNorm.
 
 Counterpart of ``avjepa_tpu/models/modules.py``. Parameters are f32
 ``nn.Linear`` / ``nn.LayerNorm`` modules named with the reference state-dict
 keys (``attn.qkv``, ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``, ``norm1``,
-``norm2``). Compute follows the input's dtype, as flax's ``dtype=`` does:
-linear layers cast their f32 weights to it, LayerNorm takes its statistics
-in f32 and casts back.
+``norm2``). Compute follows the block's dtype, as flax's ``dtype=`` does:
+LayerNorm takes its statistics in f32 and casts to it, linear layers cast
+their f32 weights to their input's dtype; the residual stream keeps the
+dtype it comes in with (f32 where the diffusion predictor's noised targets
+promote it, as in flax).
 
 The attention dispatch is the JAX package's: with ``attn_impl='flash'`` and
 heads that pack, the packed kernel reads the fused qkv in place; otherwise
@@ -23,6 +26,7 @@ from torch import nn
 
 from avjepa_tpu_torch.ops.attention import attention
 from avjepa_tpu_torch.ops.flash_attention import flash_attention_qkv, packed_qkv_eligible
+from avjepa_tpu_torch.ops.layer_norm import layer_norm as fast_layer_norm
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -31,13 +35,31 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
-def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """``norm`` with f32 statistics, cast back to ``x``'s dtype."""
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``norm`` with f32 statistics, cast to ``dtype`` (default ``x``'s)."""
     y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
-    return y.to(x.dtype)
+    return y.to(dtype or x.dtype)
 
 
 LN_EPS = 1e-6  # pre-LN and final-norm epsilon (reference: modules.py)
+
+
+class FastLayerNorm(nn.Module):
+    """LayerNorm through the port's K5/K6 kernels (``ops/layer_norm.py``;
+    JAX ``FastLayerNorm``, ``avjepa_tpu/models/modules.py:30-48``): ``weight``
+    and ``bias`` of [C] in f32, f32 statistics, output in the input's dtype.
+    On the CPU it runs the kernels' plain versions. As in the JAX package, no
+    model builds it: the Block's LayerNorm is the plain one."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fast_layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Mlp(nn.Module):
@@ -94,13 +116,15 @@ class Block(nn.Module):
     """Pre-LN residual transformer block (reference: modules.py:81-120)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, attn_impl: str = "xla", gelu: str = "exact"):
+                 qkv_bias: bool = True, attn_impl: str = "xla", gelu: str = "exact",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype  # compute dtype; None: the input's
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu=gelu)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
-        x = x + self.attn(layer_norm(self.norm1, x), key_mask=key_mask)
-        return x + self.mlp(layer_norm(self.norm2, x))
+        x = x + self.attn(layer_norm(self.norm1, x, self.dtype), key_mask=key_mask)
+        return x + self.mlp(layer_norm(self.norm2, x, self.dtype))

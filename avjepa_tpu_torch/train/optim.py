@@ -3,15 +3,19 @@
 Counterpart of ``avjepa_tpu/train/optim.py``: every schedule is a function of
 the global step, with the reference's increment-before-evaluate convention
 and clamps (reference: src/utils/schedulers.py:11-76). AdamW is
-``torch.optim.AdamW``, with decoupled weight decay only on parameters of two
-or more dimensions whose names hold no 'bias' (reference:
-app/avjepa/utils.py:245-263); lr and wd are set on its groups every step.
+``torch.optim.AdamW``, with decoupled weight decay on the parameters the JAX
+package's ``wd_mask`` decays (``avjepa_tpu/train/optim.py:85-93``): those
+of two or more dimensions whose names hold no 'bias', and the block
+LayerNorm weights, which are 2-D ``[L, D]`` leaves of its depth-stacked
+blocks (the PyTorch reference, app/avjepa/utils.py:245-263, decays no
+LayerNorm weight); lr and wd are set on its groups every step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Iterable
 
 import torch
@@ -66,9 +70,14 @@ def ema_at_step(cfg: ScheduleConfig, step: int) -> float:
     return cfg.ema_start + step / cfg.total_steps * (cfg.ema_end - cfg.ema_start)
 
 
+# a block's LayerNorm weight: one row of a stacked [L, D] leaf in the JAX package
+_BLOCK_NORM = re.compile(r"(^|\.)(blocks|predictor_blocks)\.\d+\.norm[12]\.weight$")
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
-    """True where decoupled weight decay applies (2D+ non-bias params)."""
-    return p.ndim >= 2 and "bias" not in name
+    """True where decoupled weight decay applies: non-bias params of 2+
+    dimensions, and the block LayerNorm weights (2-D leaves in JAX)."""
+    return (p.ndim >= 2 or _BLOCK_NORM.search(name) is not None) and "bias" not in name
 
 
 def make_optimizer(models: Iterable[nn.Module], betas=(0.9, 0.999),

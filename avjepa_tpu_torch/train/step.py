@@ -59,16 +59,28 @@ def jepa_loss(z: torch.Tensor, h: torch.Tensor, pred_mask: torch.Tensor,
 
 
 def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_masks,
-            enc_idx=None, union_idx=None):
+            enc_idx=None, union_idx=None, draws: Optional[dict] = None):
     """(loss, loss_jepa, loss_reg) of one batch; enc_masks/pred_masks
     [M, B, N] bool, enc_idx a sequence of M [B, K_i] or None, union_idx
-    [M, B, Ku] or None."""
+    [M, B, Ku] or None. ``draws``: the diffusion predictor's
+    (``Predictor.diffusion_draws``); by default drawn from a generator
+    seeded with the step, as the JAX step folds the step into its key."""
     num_cfgs, b, n = enc_masks.shape
     encoder, predictor = state.encoder, state.predictor
 
     # target: full-sequence EMA encoder, feature-dim LN, no gradients
     with torch.no_grad():
         h = feature_layer_norm(state.target_encoder(video, audio).float())
+
+    # the diffusion-fallback predictor (use_mask_tokens: false) seeds its
+    # targets from h, noised with this step's draws; every mask config gets
+    # the same draws, as in avjepa_tpu/train/step.py:139-146
+    pred_kwargs = {}
+    if not predictor.use_mask_tokens:
+        if draws is None:
+            draws = predictor.diffusion_draws(
+                b, torch.Generator(device=h.device).manual_seed(state.step))
+        pred_kwargs = dict(target=h, draws=draws)
 
     def encode_ctx(i):
         if enc_idx is not None:
@@ -78,7 +90,7 @@ def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_ma
             return scatter_rows(ctx_c, idx, n)
         return encoder(video, audio, key_mask=enc_masks[i])
 
-    if num_cfgs > 1:
+    if predictor.use_mask_tokens and num_cfgs > 1:
         # every mask config through ONE predictor pass, merged batch-major
         # ([b0cfg0, b0cfg1, b1cfg0, ...]) with a per-sample mask-token index,
         # then split by reshape (avjepa_tpu/train/step.py:170-199)
@@ -93,8 +105,10 @@ def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_ma
         z_all = predictor(ctx_all, enc_all, pred_all, midx, gather_idx=u_all)
         zs = z_all.reshape(b, num_cfgs, n, z_all.shape[-1]).unbind(1)
     else:
-        zs = [predictor(encode_ctx(0), enc_masks[0], pred_masks[0], 0,
-                        gather_idx=None if union_idx is None else union_idx[0])]
+        # one predictor call per mask config (avjepa_tpu/train/step.py:200-209)
+        zs = [predictor(encode_ctx(i), enc_masks[i], pred_masks[i], i,
+                        gather_idx=None if union_idx is None else union_idx[i], **pred_kwargs)
+              for i in range(num_cfgs)]
 
     loss_jepa = 0.0
     pstd = 0.0
@@ -113,16 +127,24 @@ def _grads(module: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
 
 
 def grad_stats(named_grads) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Reference grad_logger (src/utils/logging.py:91-105): the mean of the
-    per-parameter grad norms over non-bias params of 2+ dimensions, and the
-    first and last block's qkv weight grad norm."""
+    """The JAX package's grad_stats (``avjepa_tpu/train/step.py:337-362``;
+    reference grad_logger, src/utils/logging.py:91-105): the mean of the
+    per-leaf grad norms over the leaves that decay (``decays``: 2+ dims or a
+    block LayerNorm weight, no bias), and the first and last block's qkv
+    weight grad norm. Leaves are counted as the JAX package counts its own:
+    one entry per block parameter (its stacked leaves count per layer), and
+    one per stream for the mask tokens (an [M, Dp] leaf there)."""
     kept = [(n, g) for n, g in named_grads if decays(n, g)]
     norms = torch._foreach_norm([g for _, g in kept]) if kept else []
     by_name = dict(zip((n for n, _ in kept), norms))
+    leaves: dict[str, list] = {}
+    for n, v in by_name.items():
+        leaves.setdefault(n.rsplit(".", 1)[0] if n.startswith("mask_tokens") else n, []).append(v)
     qkv = sorted((n for n in by_name if n.endswith("attn.qkv.weight")),
                  key=lambda n: int(n.split(".")[1]))
     z = torch.zeros((), device=norms[0].device if norms else "cpu")
-    avg = torch.stack(norms).mean() if norms else z
+    avg = torch.stack([v[0] if len(v) == 1 else torch.linalg.vector_norm(torch.stack(v))
+                       for v in leaves.values()]).mean() if norms else z
     return avg, by_name[qkv[0]] if qkv else z, by_name[qkv[-1]] if qkv else z
 
 
@@ -136,16 +158,17 @@ def _abs_mean(optimizer: torch.optim.Optimizer, module: torch.nn.Module, key: st
 
 def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video, audio,
                enc_masks, pred_masks, enc_idx=None, union_idx=None,
-               full_metrics: bool = True) -> dict:
+               full_metrics: bool = True, draws: Optional[dict] = None) -> dict:
     """One step in place on ``state``; returns its metrics as Python numbers.
 
     ``full_metrics=False`` skips the diagnostics read only at log boundaries
-    (per-parameter grad norms, optimizer moments, input variance)."""
+    (per-parameter grad norms, optimizer moments, input variance); ``draws``
+    goes to ``loss_fn``."""
     step = state.step
     lr, wd = lr_at_step(sched, step), wd_at_step(sched, step)
     state.optimizer.zero_grad(set_to_none=True)
     loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
-                                        enc_idx, union_idx)
+                                        enc_idx, union_idx, draws)
     loss.backward()
 
     # per-model global norms; the clip only after warmup (reference:

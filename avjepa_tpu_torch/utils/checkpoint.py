@@ -10,7 +10,12 @@ and adds no mapping code:
 - ``save_train_state`` / ``load_train_state``: the pretrain app's state as the
   reference writes it (app/avjepa/train.py:332-350): ``encoder``,
   ``predictor``, ``target_encoder``, ``opt``, ``epoch``, ``loss``,
-  ``batch_size``, ``world_size``, ``lr``, plus ``step``.
+  ``batch_size``, ``world_size``, ``lr``, plus ``step``;
+- ``load_jepa_weights``: the frozen ``target_encoder`` and ``predictor`` of
+  such a file, for the avprediction app and the av_prediction eval;
+- ``save_probe_state`` / ``load_probe_state``: the reconstruction probe, its
+  AdamW state and its step, at ``<folder>/<tag>-probe-latest.pth.tar``
+  (the JAX package keeps an Orbax ``<tag>-probe-ckpt`` directory).
 An Orbax checkpoint directory cannot be read without JAX and is refused.
 """
 
@@ -88,6 +93,11 @@ def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
         "lr": lr,
         "step": state.step,
     }
+    _save(out, path)
+
+
+def _save(out: dict, path: str) -> None:
+    """torch.save to ``path`` atomically (a temporary file, then a rename)."""
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(out, tmp)
     os.replace(tmp, path)
@@ -103,3 +113,31 @@ def load_train_state(path: str, state) -> None:
     if ckpt.get("opt") is not None:
         state.optimizer.load_state_dict(ckpt["opt"])
     state.step = int(ckpt.get("step", 0))
+
+
+def load_jepa_weights(path: str, target_encoder: nn.Module, predictor: nn.Module) -> None:
+    """Load the ``target_encoder`` and ``predictor`` entries of a
+    reference-layout ``.pth.tar`` (the pretrain app's output) strictly; a
+    directory (an Orbax checkpoint) raises, naming the converter."""
+    ckpt = _load(path)
+    target_encoder.load_state_dict(_module_state(ckpt, "target_encoder", path), strict=True)
+    predictor.load_state_dict(_module_state(ckpt, "predictor", path), strict=True)
+
+
+def save_probe_state(path: str, state) -> None:
+    """Write a probe state (``train.avprediction.ProbeState``) atomically."""
+    _save({"probe": state.probe.state_dict(), "opt": state.optimizer.state_dict(),
+           "step": state.step}, path)
+
+
+def load_probe_state(path: str, state) -> None:
+    """Restore a probe state in place, strictly: every probe parameter must be
+    in the file with its shape (``load_state_dict(strict=True)``), so a
+    random probe never passes for a trained one. Raises FileNotFoundError
+    when there is no file."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no probe checkpoint: {path!r}")
+    ckpt = _load(path)
+    state.probe.load_state_dict(ckpt["probe"], strict=True)
+    state.optimizer.load_state_dict(ckpt["opt"])
+    state.step = int(ckpt["step"])

@@ -230,6 +230,32 @@ def encoder_params_to_state_dict(params: dict) -> dict:
     return out
 
 
+def probe_params_to_state_dict(params: dict) -> dict:
+    """Flax params of a reconstruction probe (``models/prediction_probes.py``)
+    -> the port's probe state dict, keeping the flax leaf names as module
+    names: Dense kernels ``[in, out]`` become ``[out, in]`` weights, conv
+    kernels ``[*k, in, out]`` become ``[out, in, *k]``, a LayerNorm ``scale``
+    becomes ``weight``; other leaves keep their names and values. (Not in
+    the JAX package: its probes have no PyTorch twin there.)"""
+    out = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key}.")
+                continue
+            a = np.asarray(value)
+            if key == "kernel":
+                out[prefix + "weight"] = a.T if a.ndim == 2 else np.moveaxis(a, (-1, -2), (0, 1))
+            elif key == "scale":
+                out[prefix + "weight"] = a
+            else:
+                out[prefix + key] = a
+
+    walk(params, "")
+    return out
+
+
 def predictor_params_to_state_dict(params: dict) -> dict:
     out = {}
     out["predictor_embed_v.weight"] = np.asarray(params["embed_v"]["kernel"]).T

@@ -27,11 +27,24 @@ exits non-zero:
   6. one ViT-L step at batch 4 through the kernels against the same step
      through the plain attention (loss and grad norms);
   7. the ViT-L step on a resident batch of 24 (CUDA events, peak memory,
-     a torch.profiler window), with remat and without.
-Every run of phases 4-5 is driven with the kernels' launch counts set to 0
-just before it and asserted just after. The last lines are a JSON kernel
-table, the card's name and power limit, and {"ok": true, "device": {...}}.
-Without a GPU it exits 1 and prints no result.
+     a torch.profiler window), with remat and without;
+  8. the LayerNorm kernels K5/K6 through FastLayerNorm, forward and
+     backward, against their plain versions in bf16 and f32 at [39936,
+     1024], [67584, 384] and a ragged [1003, 192]; two backward runs give
+     the same dgamma/dbeta bits; times beside the plain version,
+     F.layer_norm and the bound;
+  9. the avprediction apps at av-vitl16_prediction.yaml (ViT-L AV, bf16,
+     batch 24, synthetic clips) on the pretrain checkpoint of phase 5: 4
+     probe steps through registry.app_main, avprediction_example, and the
+     av_prediction eval through its CLI entry;
+ 10. one probe step's frozen tokens and loss at batch 4 through the kernels
+     against the plain attention; the probe step timed on a resident batch
+     of 24 (CUDA events, peak memory), with K1 timed at its two dense
+     key-masked shapes of that path (d=64 encoder, d=24 predictor).
+Every run of phases 4-5 and 9 is driven with the kernels' launch counts set
+to 0 just before it and asserted just after. The last lines are a JSON
+kernel table, the card's name and power limit, and {"ok": true, "device":
+{...}}. Without a GPU it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "avjepa_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "avjepa_tpu_torch/csrc/attention_bwd.cu"
+LN_SOURCE = "avjepa_tpu_torch/csrc/layer_norm.cu"
 
 # max abs error of kernel vs plain version, (out, lse). bf16/f16: the two
 # share every rounding point, but their f32 sums run in other orders, which
@@ -68,6 +82,15 @@ BWD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # these rates)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# f32 outside the tensor cores (NVIDIA's data sheet), for LayerNorm's work
+PEAK_F32_FLOPS = 67e12
+# max abs error of a LayerNorm kernel against its plain version, relative to
+# max|plain|: y and dx share every rounding point with the plain version,
+# whose f32 row sums run in another order, which can move the one rounding
+# to bf16 by an ulp (2^-8 relative, as BWD_REL_TOL) or leave f32 within a
+# few ulp; dgamma/dbeta sum up to 67,584 rows in f32 in other orders
+LN_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+LN_PARAM_REL_TOL = 1e-4
 # relative L2 error of the pooled ViT-L features, kernel vs plain attention,
 # in bf16: same rounding points, other summation orders, over 24 layers
 POOLED_REL_TOL = 2e-2
@@ -313,9 +336,10 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms on an H100 SXM, what bounds it) for bf16 work."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """(least ms on an H100 SXM, what bounds it) for work whose operations
+    run at ``peak`` (bf16 tensor cores by default)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -601,7 +625,7 @@ def run_train(workdir: str) -> dict:
         raise AssertionError("vit_tiny pretrain launch counts differ")
     losses, _ = _check_run(d["logging"]["folder"], d["logging"]["write_tag"], 2)
     print(f"train: vit_tiny 2 steps through the CLI, losses {losses}")
-    return {"vitl": vitl, "vitt": vitt}
+    return {"vitl": vitl, "vitt": vitt, "ckpt": ckpt}
 
 
 # one bf16 step through the kernels against the same step through the plain
@@ -701,6 +725,325 @@ def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
     return result
 
 
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|"""
+    return _max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_ln_kernels() -> tuple[dict, dict]:
+    """K5/K6 through FastLayerNorm (forward, then autograd's backward)
+    against the plain versions, bf16 and f32, at the pretrain step's row
+    counts (24 x 1664 encoder rows at width 1024; 48 x 1408 predictor rows
+    at 384) and a ragged shape; K6 run twice more must give the same bits.
+    Returns the bf16 max abs errors at [39936, 1024] and the phase's
+    launch counts, asserted."""
+    import torch
+
+    from avjepa_tpu_torch.models.modules import FastLayerNorm
+    from avjepa_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    ln.reset_launches()
+    want_launches = {"ln_fwd": 0, "ln_bwd": 0}
+    main_err = {}
+    print("LayerNorm kernels vs plain versions:")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for r, c in ((39936, 1024), (67584, 384), (1003, 192)):
+            x = (2.0 * randn((r, c)) + 0.5).to(dtype).requires_grad_()
+            dy = randn((r, c)).to(dtype)
+            module = FastLayerNorm(c).cuda()
+            with torch.no_grad():
+                module.weight.copy_(1.0 + 0.3 * randn(c))
+                module.bias.copy_(0.3 * randn(c))
+            y = module(x)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            w, b = module.weight.detach(), module.bias.detach()
+            want_y = ln.layer_norm_ref(x.detach(), w, b)
+            want = ln.layer_norm_bwd_ref(x.detach(), w, dy)
+            got = (x.grad, module.weight.grad, module.bias.grad)
+            errs = [_rel_err(y, want_y)] + [_rel_err(g, v) for g, v in zip(got, want)]
+            again = [ln.layer_norm_bwd(x.detach(), w, dy) for _ in range(2)]
+            same = all(torch.equal(p, q) for p, q in zip(*again))
+            same_sums = torch.equal(again[0][1], got[1]) and torch.equal(again[0][2], got[2])
+            want_launches["ln_fwd"] += 1
+            want_launches["ln_bwd"] += 3
+            tol = LN_REL_TOL[name]
+            ok = (max(errs[:2]) <= tol and max(errs[2:]) <= LN_PARAM_REL_TOL and same
+                  and same_sums)
+            print(f"  ln [{r}, {c}] {name}: max|err|/max|plain| y {errs[0]:.2e}, dx "
+                  f"{errs[1]:.2e} (tol {tol:g}), dgamma {errs[2]:.2e}, dbeta {errs[3]:.2e} "
+                  f"(tol {LN_PARAM_REL_TOL:g}); bwd bit-identical over 3 runs: "
+                  f"{same and same_sums} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"LayerNorm kernels disagree at [{r}, {c}] {name}")
+            if dtype == torch.bfloat16 and (r, c) == (39936, 1024):
+                main_err = {"ln_fwd": _max_err(y, want_y),
+                            "ln_bwd": max(_max_err(g, v) for g, v in zip(got, want))}
+            del x, dy, y, want, got, again
+    launches = dict(ln.LAUNCHES)
+    print(f"LayerNorm launches in this phase {launches} (expected {want_launches})")
+    if launches != want_launches:
+        raise AssertionError("LayerNorm launch counts differ")
+    return main_err, launches
+
+
+def time_ln_kernels() -> dict:
+    """bf16 K5/K6 at [39936, 1024] beside the plain versions, F.layer_norm
+    (forward; its autograd backward) and the bound: {key: (ms, plain_ms,
+    library_ms, bound_ms, bound_by)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from avjepa_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    r, c = 39936, 1024
+    x = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1.0 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+    # F.layer_norm takes the affine in the input's type
+    xr = x.clone().requires_grad_()
+    wr = w.to(x.dtype).requires_grad_()
+    br = b.to(x.dtype).requires_grad_()
+    with torch.no_grad():
+        lib_fwd = _time_ms(lambda: F.layer_norm(xr, (c,), wr, br, 1e-6), 20)
+    yr = F.layer_norm(xr, (c,), wr, br, 1e-6)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(yr, (xr, wr, br), dy, retain_graph=True), 20)
+    n = r * c
+    times = {
+        # x read, y written (bf16), gamma and beta read (f32); 7 f32 ops an element
+        "ln_fwd": (_time_ms(lambda: ln.layer_norm_fwd(x, w, b), 20),
+                   _time_ms(lambda: ln.layer_norm_ref(x, w, b), 3), lib_fwd,
+                   *_bound(7 * n, 2 * n * 2 + 2 * c * 4, PEAK_F32_FLOPS)),
+        # x and dy read, dx written (bf16), gamma read, dgamma and dbeta
+        # written (f32); 16 f32 ops an element
+        "ln_bwd": (_time_ms(lambda: ln.layer_norm_bwd(x, w, dy), 20),
+                   _time_ms(lambda: ln.layer_norm_bwd_ref(x, w, dy), 3), lib_bwd,
+                   *_bound(16 * n, 3 * n * 2 + 3 * c * 4, PEAK_F32_FLOPS)),
+    }
+    for key, (ms, plain, lib, bound, by) in times.items():
+        print(f"time {key} bf16 [{r}, {c}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"(F.layer_norm) {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of the bound")
+    return times
+
+
+def _prediction_cfg(workdir: str, ckpt: str, **over) -> dict:
+    """av-vitl16_prediction.yaml as it stands, with synthetic clips, 4 probe
+    steps, logging into ``workdir`` and the JEPA weights of ``ckpt``."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs/pretrain/av-vitl16_prediction.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["data"].update(source="synthetic", datasets=[], num_workers=8)
+    d["meta"]["read_checkpoint"] = ckpt
+    d["optimization"].update(ipe=4, epochs=1)
+    d["logging"].update(folder=os.path.join(workdir, "avpred"), log_freq=1)
+    for section, values in over.items():
+        d[section].update(values)
+    return d
+
+
+# K1 launches of one frozen pass (target encoder + predictor, dense over all
+# 1664 tokens): ViT-L's 24 layers and the predictor's 12
+FROZEN_PASS_LAUNCHES = 24 + 12
+
+
+def run_avprediction(workdir: str, ckpt: str) -> dict:
+    """The avprediction slice through the port's entry points on the
+    pretrain checkpoint ``ckpt``: 4 probe steps (registry.app_main), the
+    example app, and the av_prediction eval through its CLI entry, each run
+    with the kernels' launch counts set to 0 just before it and asserted just
+    after (K1 only: the frozen path launches no backward kernel, and no
+    LayerNorm kernel). Checks the CSV, the probe checkpoint, the .npz and the
+    eval summary. Returns the launch counts of each run."""
+    import csv
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from avjepa_tpu_torch.app.eval_main import launch as eval_launch
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.ops import layer_norm as ln
+    from avjepa_tpu_torch.registry import app_main
+
+    d = _prediction_cfg(workdir, ckpt)
+    steps = d["optimization"]["ipe"]
+    batch = d["data"]["batch_size"]
+    launches = {}
+
+    def counted(label, fn, want_fwd):
+        fa.reset_launches()
+        ln.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = dict(fa.LAUNCHES)
+        want = {"fwd_packed": want_fwd, "fwd": 0, "bwd_packed": 0, "bwd": 0}
+        print(f"avpred: {label} launches {got} (expected {want}), LayerNorm "
+              f"{dict(ln.LAUNCHES)}; {wall:.1f} s for the app (set-up and data included)")
+        if got != want or any(ln.LAUNCHES.values()):
+            raise AssertionError(f"{label}: launch counts differ")
+        launches[label] = got
+        return out
+
+    summary = counted("avprediction", lambda: app_main("avprediction", d, device="cuda"),
+                      steps * FROZEN_PASS_LAUNCHES)
+    folder, tag = d["logging"]["folder"], d["logging"]["write_tag"]
+    with open(os.path.join(folder, f"{tag}_probe_r0.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if (list(rows[0]) != ["epoch", "itr", "loss", "loss-video", "loss-audio"]
+            or len(rows) != steps or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"avprediction CSV: {rows}")
+    probe_file = os.path.join(folder, f"{tag}-probe-latest.pth.tar")
+    if torch.load(probe_file, map_location="cpu", weights_only=True)["step"] != steps:
+        raise AssertionError("avprediction: the probe checkpoint is not at the last step")
+    print(f"avpred: {steps} probe steps, losses {losses} (video "
+          f"{[round(float(r['loss-video']), 5) for r in rows]}); summary {summary}")
+
+    out = counted("avprediction_example",
+                  lambda: app_main("avprediction_example", d, device="cuda"),
+                  FROZEN_PASS_LAUNCHES)
+    z = np.load(out)
+    shapes = {k: z[k].shape for k in z.files}
+    if (shapes != {"video": (16, 224, 224, 3), "video_recon": (16, 224, 224, 3),
+                   "audio": (128, 192, 1), "audio_recon": (128, 192, 1)}
+            or not all(np.isfinite(z[k]).all() for k in z.files)):
+        raise AssertionError(f"avprediction_example wrote {shapes}")
+    print(f"avpred: example wrote {out} {shapes}")
+
+    path = os.path.join(workdir, "av_prediction_eval.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({**d, "eval_name": "av_prediction"}, f)
+    n_batches = min(50, max(256, 8 * batch) // batch)
+    result = counted("av_prediction eval", lambda: eval_launch(path, device="cuda"),
+                     n_batches * len(d["mask"]) * FROZEN_PASS_LAUNCHES)
+    keys = {"mse_video", "psnr_video_db", "mse_video_per_mask", "num_batches", "mse_audio",
+            "psnr_audio_db", "mse_audio_per_mask"}
+    values = [result["mse_video"], result["mse_audio"], *result["mse_video_per_mask"],
+              *result["mse_audio_per_mask"]]
+    if set(result) != keys or result["num_batches"] != n_batches or not all(
+            math.isfinite(v) for v in values):
+        raise AssertionError(f"av_prediction eval summary: {result}")
+    print(f"avpred: eval over {n_batches} batches: {result}")
+    return launches
+
+
+def check_probe_vs_plain(workdir: str, ckpt: str, batch: int = 4) -> None:
+    """One probe step's frozen tokens and loss at batch 4, through the
+    kernels against the plain attention (same weights, batch and masks)."""
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import avprediction as ap
+    from avjepa_tpu_torch.utils.logging import get_logger
+
+    cfg = load_config(_prediction_cfg(workdir, ckpt, data={"batch_size": batch}))
+    h, state, _ = ap.setup_probe(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    ap.restore_jepa_weights(h, cfg, get_logger("avjepa_tpu_torch"))
+    v, a, enc, pred = ap.batch_to_device(video, audio, masks, torch.device("cuda", 0))
+    frozen = (h.state.target_encoder, h.state.predictor, v, a, enc[0], pred[0], 0)
+    full_k = ap.frozen_tokens(*frozen)
+    with plain_packed_attention():
+        full_p = ap.frozen_tokens(*frozen)
+    rel = ((full_k.float() - full_p.float()).norm() / full_p.float().norm()).item()
+    with torch.no_grad():
+        loss_k = [x.item() for x in ap.reconstruction_mse(state.probe, full_k, v, a)]
+        loss_p = [x.item() for x in ap.reconstruction_mse(state.probe, full_p, v, a)]
+    rel_loss = [abs(x - y) / abs(y) for x, y in zip(loss_k, loss_p)]
+    print(f"avpred: frozen tokens at batch {batch}, kernels vs plain attention: rel L2 "
+          f"{rel:.3e} (tol {POOLED_REL_TOL:g}); probe loss (video, audio) {loss_k} vs "
+          f"{loss_p}, rel {', '.join(f'{r:.2e}' for r in rel_loss)} (tol {STEP_LOSS_REL_TOL:g})")
+    if rel > POOLED_REL_TOL or max(rel_loss) > STEP_LOSS_REL_TOL:
+        raise AssertionError("the kernel path's frozen tokens disagree with the plain path's")
+
+
+def time_probe_step(workdir: str, ckpt: str, steps: int = 5) -> dict:
+    """The probe step on a resident batch of 24 (CUDA events, peak memory, a
+    torch.profiler window of 2 steps with the device time by kernel written
+    to chiprun_out/probe_profile.txt), then K1 at the path's two shapes on this batch's masks: the encoder's
+    (d=64, context key mask) and the predictor's (d=24, enc|pred key mask),
+    dense over 1664 tokens, beside the plain version, SDPA and the bound
+    (counting valid keys)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train import avprediction as ap
+    from avjepa_tpu_torch.utils.logging import get_logger
+
+    cfg = load_config(_prediction_cfg(workdir, ckpt))
+    h, state, sched = ap.setup_probe(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    ap.restore_jepa_weights(h, cfg, get_logger("avjepa_tpu_torch"))
+    inputs = ap.batch_to_device(video, audio, masks, torch.device("cuda", 0))
+
+    def run():
+        ap.probe_step(state, sched, h.state.target_encoder, h.state.predictor, *inputs)
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(run, steps)
+    peak = torch.cuda.max_memory_allocated()
+    b = cfg.data.batch_size
+    print(f"avpred: probe step {ms:.1f} ms on a resident batch of {b} (CUDA events, {steps} "
+          f"steps; frozen encoder + predictor + probe forward/backward + AdamW), "
+          f"{1000 * b / ms:.2f} clips/s; peak allocated {peak / 2**30:.2f} GiB")
+    result = {"step_ms": ms, "peak_gib": peak / 2**30}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "probe_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / 2e3  # ms per step
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"avpred: profile, {total:.1f} ms of device kernels per probe step; top: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 2e3:.2f} ms" for e in top))
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    enc_m, pred_m = inputs[2][0], inputs[3][0]
+    for label, d, mask in (("encoder d=64", 64, enc_m), ("predictor d=24", 24, enc_m | pred_m)):
+        n, heads = mask.shape[1], 16
+        qkv = torch.randn((b, n, 3 * heads * d), generator=gen, device="cuda").to(torch.bfloat16)
+        valid = int(mask.sum().item())
+        q, k, v = (t.contiguous() for t in fa._split_qkv(qkv, heads))
+        with torch.no_grad():
+            lib = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None, None, :]), 10)
+        kernel = _time_ms(lambda: fa.flash_attention_qkv_fwd(qkv, heads, mask), 20)
+        plain = _time_ms(lambda: fa.flash_attention_qkv_ref(qkv, heads, mask), 3)
+        bound, by = _bound(4 * heads * d * n * valid, 4 * b * n * heads * d * 2
+                           + b * heads * n * 4 + b * n * 4)
+        print(f"time fwd_packed bf16, probe path {label}: B={b} N={n} H={heads}, "
+              f"{valid / (b * n):.3f} of the keys valid: kernel {kernel:.3f} ms, plain "
+              f"{plain:.3f} ms, library (SDPA) {lib:.3f} ms, bound {bound:.3f} ms ({by}), "
+              f"{100 * bound / kernel:.1f}% of the bound")
+        result[label] = (kernel, plain, lib, bound, by)
+        del qkv, q, k, v
+    return result
+
+
 def main() -> None:
     try:
         import torch
@@ -714,13 +1057,17 @@ def main() -> None:
     toolchain()
     build()
     errs = {**check_kernels(), **check_bwd_kernels()}
-    times = time_kernels()
+    ln_errs, ln_launches = check_ln_kernels()
+    times = {**time_kernels(), **time_ln_kernels()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         run_slice(workdir)
         train = run_train(workdir)
         check_train_vs_plain(workdir)
         time_train_step(workdir, remat=True)
         time_train_step(workdir, remat=False)
+        run_avprediction(workdir, train["ckpt"])
+        check_probe_vs_plain(workdir, train["ckpt"])
+        time_probe_step(workdir, train["ckpt"])
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)
@@ -738,6 +1085,16 @@ def main() -> None:
             "replaces": f"avjepa_tpu/ops/flash_attention.py:{line}",
             "launches": run[key], "max_abs_err": errs[key], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        })
+    # K5/K6 are on no path (only FastLayerNorm reaches them, which no model
+    # builds): their launches are those of their check phase
+    for name, line in (("ln_fwd", 46), ("ln_bwd", 56)):
+        ms, plain, lib, bound, by = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": LN_SOURCE,
+            "replaces": f"avjepa_tpu/ops/layer_norm.py:{line}",
+            "launches": ln_launches[name], "max_abs_err": ln_errs[name], "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -186,8 +186,14 @@ def test_predictor_matches_jax(compact):
 
 
 def test_diffusion_predictor_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Predictor(LAYOUT, use_mask_tokens=False)
+    """The diffusion-fallback predictor has no mask tokens and, as the JAX
+    one asserts, refuses a call without the target embeddings and draws."""
+    port = Predictor(LAYOUT, use_mask_tokens=False, **PRED)
+    assert not any("mask_tokens" in k for k in port.state_dict())
+    n = LAYOUT.num_tokens
+    ctx, mask = torch.zeros(2, n, 192), torch.ones(2, n, dtype=torch.bool)
+    with pytest.raises(ValueError, match="target embeddings"):
+        port(ctx, mask, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +250,8 @@ def test_adamw_update_matches_jax():
 
 
 def test_train_step_matches_jax():
-    """One step's loss and per-parameter grads (relative L2 <= 1e-4), then
+    """One step's loss, grad-avg and per-parameter grads (relative L2 <=
+    1e-4), then
     three steps' losses within 0.2% (ROADMAP's tolerance), on the same
     weights, batches and masks, attn_impl flash on both sides (the Pallas
     kernels in interpret mode, the port's plain versions). The JAX grads are
@@ -275,6 +282,10 @@ def test_train_step_matches_jax():
         losses.append(m["loss"])
         if i == 0:
             assert abs(m["loss"] - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
+            # grad-avg counts leaves as the JAX package does: per block, and
+            # the mask tokens of a stream as one [M, Dp] leaf
+            for k in ("enc_grad_avg", "pred_grad_avg"):
+                assert abs(m[k] - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
             for name, params, module in (
                 ("encoder", jstate.enc_opt.mu, state.encoder),
                 ("predictor", jstate.pred_opt.mu, state.predictor),
