@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (attention_fwd.cu,
 // attention_bwd.cu): constants of the TPU kernels' contract, the key bias,
-// quad reductions, cp.async, ldmatrix and the mma.sync m16n8k16 wrappers.
+// quad reductions, ex2, cp.async, ldmatrix and the mma.sync m16n8k16
+// wrappers.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4*g + t): the f32 accumulator
 // c[0..1] is row g, columns 2t and 2t+1; c[2..3] is row g + 8, same
@@ -21,6 +22,8 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_D = 128;
 constexpr float NEG_BIAS = -1e30f;
 constexpr float SOFTMAX_CLAMP = 80.0f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // bias of one key; keys past N are excluded like masked keys
 __device__ __forceinline__ float key_bias(const float* bias_g, int key, int N) {
@@ -38,6 +41,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// 2^x in one MUFU.EX2 (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -49,8 +59,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// 4-byte async copy (through L1: the 16-byte form is the only one that may
+// bypass it); zero-filled when valid == false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -125,11 +152,11 @@ inline size_t elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
 // own error (a refused launch never runs, and a synchronize would not say so)
 template <typename Kernel, typename P>
 cudaError_t launch_kernel(Kernel kernel, dim3 grid, size_t smem, const P& p,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int threads = NTHREADS) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -18,25 +18,45 @@
 // (batch, head) does 4*N^2*d = 0.71 GFLOP of QK^T and PV products against
 // about 0.85 MB of q/k/v/o traffic, far above the ~295 flop/byte ridge, so
 // the two products bound it at full tiles and they belong on tensor cores.
+// But a score costs 4*d = 256 tensor-core operations at d = 64 (96 at
+// d = 24), about 1/16 of an SM clock at the peak rate, while its softmax
+// work runs on 128 scalar lanes a clock: each instruction per score costs
+// as much as the products. So the design spends as few as it can.
 //
-// Design. One block of 4 warps per (64-row q tile, head, batch); each warp
-// owns 16 query rows. bf16/f16 inputs take the tensor-core kernel: the q
-// tile is loaded once into registers; 64-key K/V tiles are copied into
-// shared memory with cp.async; both products are mma.sync m16n8k16 (f32
-// accumulate) fed by ldmatrix; scores, probabilities, softmax statistics and
-// the output accumulator never leave registers (the FlashAttention-2
-// layout: the score accumulator of two 8-key tiles is exactly the A operand
-// of the PV product). head_dim is zero-padded to a multiple of 32 in shared
-// memory and registers only (d = 24 runs as 32), never in device memory.
+// Design (one 16-bit kernel for K1 and K3, templated on the numerics):
+// - 8 warps a block, 16 query rows each: 128 rows share every K/V tile.
+//   The q tile is loaded once into registers (K1 scales and rounds it).
+// - A block first lists its 64-key tiles: a tile whose keys are all masked
+//   or past N is left out (skipped, never read); a "full" tile (every key
+//   below N with bias exactly 0) takes a path with no bias add. With no mask
+//   every tile but a ragged last one is full.
+// - K/V tiles (and a partial tile's 64 biases) stream through a 3-slot
+//   cp.async ring (commit_group / wait_group): tiles j+1 and j+2 are in
+//   flight while tile j is computed; one barrier a tile.
+// - Both products are mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix;
+//   scores, probabilities, softmax statistics and the output accumulator
+//   never leave registers (the FlashAttention-2 layout: the score
+//   accumulator of two 8-key tiles is exactly the A operand of the PV
+//   product).
+// - Logits are in log2 units and p = ex2.approx (one MUFU op): K1 computes
+//   min(s * log2e, 80 * log2e) (the same f32 value as min(s, 80) * log2e),
+//   K3 folds scale * log2e and bias * log2e into one FFMA and keeps its
+//   running max in log2 units. lse is written back in natural units; a K3
+//   row that saw no valid key writes -1e30 + log(1e-30), the plain
+//   version's value, exactly.
+// - head_dim is zero-padded to 32, 64, 96 or 128 in shared memory and
+//   registers only (d = 24 runs as 32), never in device memory.
 // f32 inputs (exact comparisons, not speed) take a simple kernel: shared
-// memory tiles and FMA loops. Not yet used: wgmma, TMA, double-buffered K/V.
+// memory tiles and FMA loops, accurate expf.
+// Not yet used: wgmma, TMA, mbarriers, warp specialisation, persistent
+// blocks (the H100's mma.sync path reaches only part of its tensor-core
+// rate: see PERF.md).
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
+constexpr int BK = 64;  // keys per tile, and the granularity of the skip rule
 
 struct Params {
   const void* q;
@@ -58,24 +78,74 @@ struct Params {
 // bf16 / f16: tensor cores, register-resident (FlashAttention-2 layout)
 // ---------------------------------------------------------------------------
 
+constexpr int MMA_WARPS = 8;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_BQ = MMA_WARPS * 16;  // query rows per block: 16 a warp
+constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
+
+// the block's key tiles, compacted: entry = tile index * 2 + 1 if every key
+// of the tile is below N with bias exactly 0 ("full": no bias add), + 0 else.
+// Tiles whose keys are all masked (bias <= -1) or past N are left out.
+__device__ int list_key_tiles(const float* bias_g, int N, int* list) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ntiles = (N + BK - 1) / BK;
+  __shared__ int count;
+  if (bias_g == nullptr) {
+    for (int j = tid; j < ntiles; j += MMA_THREADS) list[j] = 2 * j + ((j + 1) * BK <= N);
+    __syncthreads();
+    return ntiles;
+  }
+  for (int j = warp; j < ntiles; j += MMA_WARPS) {  // flags: 0 skip, 1 partial, 3 full
+    int valid = 0, zero = 1;
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int key = j * BK + e * 32 + lane;
+      const float bv = key < N ? bias_g[key] : NEG_BIAS;
+      valid |= bv > -1.0f;
+      zero &= bv == 0.0f;
+    }
+    const bool any = __any_sync(0xffffffffu, valid), all = __all_sync(0xffffffffu, zero);
+    if (lane == 0) list[j] = any ? (all ? 3 : 1) : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact in place: an entry moves only to a lower slot
+    int n = 0;
+    for (int j0 = 0; j0 < ntiles; j0 += 32) {
+      const int j = j0 + lane;
+      const int f = j < ntiles ? list[j] : 0;
+      const unsigned keep = __ballot_sync(0xffffffffu, f != 0);
+      __syncwarp();
+      if (f) list[n + __popc(keep & ((1u << lane) - 1))] = 2 * j + (f >> 1);
+      n += __popc(keep);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  return count;
+}
+
 // CLAMPED = K1 numerics (scale folded into q, no-max clamped softmax);
 // otherwise K3 numerics (scale on s, running max). DP = d padded to 32.
+// Logits are kept in log2 units: x = s * log2(e) (K1) or
+// s * scale * log2(e) (K3), plus bias * log2(e), and p = ex2(...).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4*g + t): the f32 accumulator
 // c[0..1] is row g, columns 2t and 2t+1; c[2..3] is row g + 8, same
 // columns. So each thread holds two query rows (g and g + 8 of its warp's
 // 16) and, per 8-key tile, two keys of each.
 template <typename T, bool CLAMPED, int DP>
-__global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm) {
+__global__ void __launch_bounds__(MMA_THREADS, DP <= 64 ? 2 : 1)
+attn_fwd_mma_kernel(const Params prm) {
   constexpr int LD = DP + 8;      // shared row stride: ldmatrix without bank conflicts
   constexpr int CHUNKS = DP / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + BQ * LD;
-  T* sv = sk + BK * LD;
+  T* ring = sq + MMA_BQ * LD;                                             // [NSTAGE][K | V][BK][LD]
+  float* sbias = reinterpret_cast<float*>(ring + NSTAGE * 2 * BK * LD);  // [NSTAGE][BK]
+  int* list = reinterpret_cast<int*>(sbias + NSTAGE * BK);
 
   const int N = prm.N, d = prm.d;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * MMA_BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int lm = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row
@@ -85,52 +155,71 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
   const T* vg = static_cast<const T*>(prm.v) + b * prm.v_sb + h * prm.v_sh;
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
 
-  // q tile -> shared (rows past N, columns past d zero) -> this warp's
-  // fragments in registers
-  for (int i = tid; i < BQ * CHUNKS; i += NTHREADS) {
+  // q tile -> shared (rows past N, columns past d zero): copy group 0
+  for (int i = tid; i < MMA_BQ * CHUNKS; i += MMA_THREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = q0 + r;
     const bool in = row < N && c < d;
     cp_async16(sq + r * LD + c, in ? qg + row * prm.q_sn + c : qg, in);
   }
-  cp_async_wait_all();
+  cp_async_commit();
+  const int ntiles = list_key_tiles(bias_g, N, list);
+
+  // copy group of one listed key tile into ring slot i % NSTAGE (empty past
+  // the list, so that every thread commits the same number of groups); a
+  // partial tile's bias comes along, zero past N
+  auto load_tile = [&](int i) {
+    if (i < ntiles) {
+      const int e = list[i], k0 = (e >> 1) * BK, slot = i % NSTAGE;
+      T* sk = ring + slot * 2 * BK * LD;
+      T* sv = sk + BK * LD;
+      for (int c = tid; c < BK * CHUNKS; c += MMA_THREADS) {
+        const int r = c / CHUNKS, col = (c % CHUNKS) * 8, key = k0 + r;
+        const bool in = key < N && col < d;
+        cp_async16(sk + r * LD + col, in ? kg + key * prm.k_sn + col : kg, in);
+        cp_async16(sv + r * LD + col, in ? vg + key * prm.v_sn + col : vg, in);
+      }
+      if (bias_g && !(e & 1) && tid < BK) {
+        const bool in = k0 + tid < N;
+        cp_async4(sbias + slot * BK + tid, in ? bias_g + k0 + tid : bias_g, in);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) load_tile(i);
+
+  cp_async_wait<NSTAGE - 1>();  // the q tile
   __syncthreads();
   uint32_t qf[DP / 16][4];
 #pragma unroll
   for (int kt = 0; kt < DP / 16; ++kt) {
     ldmatrix_x4(qf[kt], sq + (warp * 16 + lane % 16) * LD + kt * 16 + (lane / 16) * 8);
-    if (CLAMPED) {  // (q * scale) in f32, rounded back to T, as on the TPU
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 x = Mma<T>::unpack(qf[kt][j]);
-        qf[kt][j] = Mma<T>::pack(x.x * prm.scale, x.y * prm.scale);
-      }
-    }
+    if (CLAMPED) scale_frag<T>(qf[kt], prm.scale);  // (q * scale) in f32, rounded to T
   }
 
   float o[DP / 8][4];
 #pragma unroll
   for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
-  float m_row[2] = {NEG_BIAS, NEG_BIAS};  // running max (K3)
+  float m_row[2] = {NEG_BIAS, NEG_BIAS};  // running max in log2 units (K3)
   float l_row[2] = {0.0f, 0.0f};          // this thread's part of the row sums
+  // x = s * xs (+ bias * log2e): K1's s already carries the scale
+  const float xs = CLAMPED ? LOG2E : prm.scale * LOG2E;
+  constexpr float CLAMP2 = SOFTMAX_CLAMP * LOG2E;
 
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    // a tile whose keys are all masked adds exactly nothing: skip it. The
-    // barrier also keeps the previous tile's readers ahead of the copy below.
-    const int valid = tid < BK && key_bias(bias_g, k0 + tid, N) > -1.0f;
-    if (!__syncthreads_or(valid)) continue;
-    for (int i = tid; i < BK * CHUNKS; i += NTHREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8, key = k0 + r;
-      const bool in = key < N && c < d;
-      cp_async16(sk + r * LD + c, in ? kg + key * prm.k_sn + c : kg, in);
-      cp_async16(sv + r * LD + c, in ? vg + key * prm.v_sn + c : vg, in);
-    }
-    cp_async_wait_all();
+  for (int i = 0; i < ntiles; ++i) {
+    // tile i has landed for every thread, and every warp is done with tile
+    // i - 1, whose slot the copy below refills
+    cp_async_wait<NSTAGE - 2>();
     __syncthreads();
+    load_tile(i + NSTAGE - 1);
+    const int e = list[i], k0 = (e >> 1) * BK, slot = i % NSTAGE;
+    const T* sk = ring + slot * 2 * BK * LD;
+    const T* sv = sk + BK * LD;
 
     // s = q . k^T: eight 8-key tiles; ldmatrix gives two tiles' B operands
     float s[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
     for (int kt = 0; kt < DP / 16; ++kt) {
 #pragma unroll
@@ -142,14 +231,25 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
       }
     }
 
-    // bias, softmax statistics, p
+    // logits in log2 units; a partial tile adds its bias (keys past N get
+    // the masked bias, so p = 0 exactly)
+    if (e & 1) {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+      for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float bv = key_bias(bias_g, k0 + nt * 8 + 2 * t + e, N);
-        s[nt][e] = CLAMPED ? s[nt][e] + bv : s[nt][e] * prm.scale + bv;
-        s[nt][2 + e] = CLAMPED ? s[nt][2 + e] + bv : s[nt][2 + e] * prm.scale + bv;
+        for (int j = 0; j < 4; ++j) s[nt][j] *= xs;
+      }
+    } else {
+      const float* sb = sbias + slot * BK;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = nt * 8 + 2 * t + c;
+          const float bl = (k0 + col < N ? (bias_g ? sb[col] : 0.0f) : NEG_BIAS) * LOG2E;
+          s[nt][c] = fmaf(s[nt][c], xs, bl);
+          s[nt][2 + c] = fmaf(s[nt][2 + c], xs, bl);
+        }
       }
     }
     if (!CLAMPED) {
@@ -162,7 +262,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float m_new = fmaxf(m_row[r], quad_max(mx[r]));
-        const float corr = expf(m_row[r] - m_new);
+        const float corr = ex2(m_row[r] - m_new);
         m_row[r] = m_new;
         l_row[r] *= corr;
 #pragma unroll
@@ -177,7 +277,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float x = s[nt][j];
-        s[nt][j] = CLAMPED ? expf(fminf(x, SOFTMAX_CLAMP)) : expf(x - m_row[j / 2]);
+        s[nt][j] = CLAMPED ? ex2(fminf(x, CLAMP2)) : ex2(x - m_row[j / 2]);
         l_row[j / 2] += s[nt][j];
       }
     }
@@ -201,6 +301,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
       }
     }
   }
+  cp_async_wait_all();  // no copy may still target shared memory at exit
 
   T* og = static_cast<T*>(prm.o) + b * prm.o_sb + h * prm.o_sh;
 #pragma unroll
@@ -217,8 +318,12 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
       }
     }
     if (t == 0) {
-      prm.lse[(static_cast<long long>(b) * prm.H + h) * N + row] =
-          CLAMPED ? logf(l) : m_row[r] + logf(l);
+      // natural units; a K3 row that saw no valid key keeps the sentinel
+      // max and writes -1e30 + log(1e-30), as the plain version does
+      const float lse = CLAMPED ? logf(l)
+                        : m_row[r] == NEG_BIAS ? NEG_BIAS + logf(l)
+                                               : (m_row[r] + log2f(l)) * LN2;
+      prm.lse[(static_cast<long long>(b) * prm.H + h) * N + row] = lse;
     }
   }
 }
@@ -227,6 +332,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params prm
 // f32: shared-memory tiles and FMA loops, in full f32
 // ---------------------------------------------------------------------------
 
+constexpr int BQ = 64;           // query rows per block
 constexpr int F32_LDS = BK + 4;  // scores
 
 template <bool CLAMPED>
@@ -332,12 +438,15 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_f32_kernel(const Params prm
 // launch
 // ---------------------------------------------------------------------------
 
-dim3 grid_of(const Params& p) { return dim3((p.N + BQ - 1) / BQ, p.H, p.B); }
+dim3 grid_of(const Params& p, int bq) { return dim3((p.N + bq - 1) / bq, p.H, p.B); }
 
 template <typename T, bool CLAMPED, int DP>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (BQ + 2 * BK) * (DP + 8);
-  return launch_kernel(attn_fwd_mma_kernel<T, CLAMPED, DP>, grid_of(p), smem, p, stream);
+  const int ntiles = (p.N + BK - 1) / BK;
+  const size_t smem = sizeof(T) * (MMA_BQ + NSTAGE * 2 * BK) * (DP + 8) +
+                      sizeof(float) * NSTAGE * BK + sizeof(int) * ntiles;
+  return launch_kernel(attn_fwd_mma_kernel<T, CLAMPED, DP>, grid_of(p, MMA_BQ), smem, p,
+                       stream, MMA_THREADS);
 }
 
 template <typename T, bool CLAMPED>
@@ -357,7 +466,7 @@ int dispatch(int dtype, const Params& p, void* stream) {
   if (dtype == 0) {
     const int ld = p.d + 1;
     const size_t smem = sizeof(float) * ((BQ + 2 * BK) * ld + BQ * F32_LDS + BQ * ld + 2 * BQ);
-    return static_cast<int>(launch_kernel(attn_fwd_f32_kernel<CLAMPED>, grid_of(p), smem, p, s));
+    return static_cast<int>(launch_kernel(attn_fwd_f32_kernel<CLAMPED>, grid_of(p, BQ), smem, p, s));
   }
   // the 16-bit kernel copies 16-byte chunks: 8-element rows, aligned
   if (p.d % 8 || !aligned16(p.q, p.q_sb, p.q_sh, p.q_sn) ||

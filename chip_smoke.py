@@ -55,6 +55,7 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -147,6 +148,37 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def print_fwd_resources() -> None:
+    """Registers, shared memory and spills of each forward kernel, from the
+    build log (nvcc -Xptxas -v), demangled where cu++filt is found."""
+    from pathlib import Path
+
+    from avjepa_tpu_torch.ops._build import find_nvcc, load_library
+
+    log = Path(load_library()._name).with_suffix(".log")
+    if not log.exists():
+        print(f"build log {log.name} not found (library built by another run)")
+        return
+    name, lines = None, []
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "attn_fwd" in name and ("spill" in line or "Used" in line):
+            lines.append((name, line.split(":", 1)[-1].strip()))
+    demangle = Path(find_nvcc()).with_name("cu++filt")
+    names = sorted({n for n, _ in lines})
+    if demangle.exists() and names:
+        out = subprocess.run([str(demangle), *names], capture_output=True, text=True)
+        pretty = dict(zip(names, out.stdout.splitlines()))
+    else:
+        pretty = {}
+    for n, line in lines:
+        label = re.sub(r"\(bool\)1", "true", pretty.get(n, n))
+        label = re.sub(r"\(bool\)0|\(int\)|^void |<unnamed>::|\(anonymous namespace\)::", "",
+                       label.replace("(bool)0", "false"))
+        print(f"  ptxas {label.split('(')[0]}: {line}")
+
+
 def check_kernels() -> dict:
     """Each kernel vs its plain version; returns the bf16 max abs error at
     the serving path's shape for each."""
@@ -154,6 +186,8 @@ def check_kernels() -> dict:
 
     from avjepa_tpu_torch.ops import flash_attention as fa
 
+    print("forward kernels' resources (ptxas):")
+    print_fwd_resources()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape, dtype):
@@ -182,6 +216,7 @@ def check_kernels() -> dict:
             (24, 1664, 16, 64, True),   # random key mask, batch row 0 all masked
             (48, 1408, 16, 24, True),   # predictor geometry
             (2, 200, 16, 64, False),    # ragged N
+            (4, 1664, 16, 80, True),    # vit_huge geometry (head_dim 80 packs)
         ):
             qkv = randn((b, n, 3 * h * d), dtype)
             mask = None
@@ -197,19 +232,29 @@ def check_kernels() -> dict:
             if dtype == torch.bfloat16 and (n, d, masked) == (1664, 64, False):
                 main_err["fwd_packed"] = err
             del qkv, got
-        # K3, classic [B, H, N, d]
-        for masked in (False, True):
-            b, h, n, d = 24, 3, 1664, 64
+        # K3, classic [B, H, N, d]: unmasked; one fully-masked 128-key
+        # block; ragged N; random keys with batch row 0 fully masked
+        for b, n, kind in ((24, 1664, None), (24, 1664, "block"), (2, 200, None),
+                           (4, 1664, "empty row")):
+            h, d = 3, 64
             q, k, v = (randn((b, h, n, d), dtype) for _ in range(3))
             mask = None
-            if masked:  # one fully-masked 128-key block
+            if kind is not None:
                 mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+            if kind == "block":
                 mask[:, 128:256] = False
+            elif kind == "empty row":
+                mask &= torch.rand((b, n), generator=gen, device="cuda") < 0.7
+                mask[0] = False
             got = fa.flash_attention_fwd(q, k, v, mask)
             torch.cuda.synchronize()
-            err = compare(f"attn_fwd B={b} H={h} N={n} d={d} masked={masked}",
-                          dtype, got, fa.flash_attention_ref(q, k, v, mask))
-            if dtype == torch.bfloat16 and not masked:
+            want = fa.flash_attention_ref(q, k, v, mask)
+            err = compare(f"attn_fwd B={b} H={h} N={n} d={d} mask={kind}", dtype, got, want)
+            if kind == "empty row" and (got[0][0].abs().max().item() != 0.0
+                                        or not torch.equal(got[1][0], want[1][0])):
+                raise AssertionError("attn_fwd: a fully-masked row is not 0, or its lse "
+                                     "differs from the plain version's")
+            if dtype == torch.bfloat16 and kind is None and n == 1664:
                 main_err["fwd"] = err
     return main_err
 
@@ -974,16 +1019,12 @@ def check_probe_vs_plain(workdir: str, ckpt: str, batch: int = 4) -> None:
 def time_probe_step(workdir: str, ckpt: str, steps: int = 5) -> dict:
     """The probe step on a resident batch of 24 (CUDA events, peak memory, a
     torch.profiler window of 2 steps with the device time by kernel written
-    to chiprun_out/probe_profile.txt), then K1 at the path's two shapes on this batch's masks: the encoder's
-    (d=64, context key mask) and the predictor's (d=24, enc|pred key mask),
-    dense over 1664 tokens, beside the plain version, SDPA and the bound
-    (counting valid keys)."""
+    to chiprun_out/probe_profile.txt), then K1 at the path's two shapes on
+    this batch's masks (time_probe_k1)."""
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from avjepa_tpu_torch.config import load_config
-    from avjepa_tpu_torch.ops import flash_attention as fa
     from avjepa_tpu_torch.train import avprediction as ap
     from avjepa_tpu_torch.utils.logging import get_logger
 
@@ -1021,8 +1062,45 @@ def time_probe_step(workdir: str, ckpt: str, steps: int = 5) -> dict:
     print(f"avpred: profile, {total:.1f} ms of device kernels per probe step; top: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 2e3:.2f} ms" for e in top))
 
+    result.update(time_probe_k1(inputs[2][0], inputs[3][0]))
+    return result
+
+
+def probe_masks(workdir: str):
+    """The avprediction path's key masks of one batch (the context mask, and
+    context | target of mask config 0), from av-vitl16_prediction.yaml's
+    loader and collator, without a checkpoint: for timing K1 at the probe
+    path's shapes phase by phase (``time_probe_k1(*probe_masks(dir))``)."""
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import avprediction as ap
+    from avjepa_tpu_torch.train import pretrain
+
+    cfg = load_config(_prediction_cfg(workdir, None))
+    h = pretrain.setup(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    inputs = ap.batch_to_device(video, audio, masks, torch.device("cuda", 0))
+    del h
+    return inputs[2][0], inputs[3][0]
+
+
+def time_probe_k1(enc_m, pred_m) -> dict:
+    """K1 at the probe path's two shapes on a batch's masks: the encoder's
+    (d=64, context key mask) and the predictor's (d=24, enc|pred key mask),
+    dense over 1664 tokens, beside the plain version, SDPA and the bound
+    (counting valid keys)."""
+    import torch
+    import torch.nn.functional as F
+
+    from avjepa_tpu_torch.ops import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(5)
-    enc_m, pred_m = inputs[2][0], inputs[3][0]
+    b = enc_m.shape[0]
+    result = {}
     for label, d, mask in (("encoder d=64", 64, enc_m), ("predictor d=24", 24, enc_m | pred_m)):
         n, heads = mask.shape[1], 16
         qkv = torch.randn((b, n, 3 * heads * d), generator=gen, device="cuda").to(torch.bfloat16)
