@@ -53,6 +53,7 @@
 // rate: see PERF.md).
 
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -75,12 +76,12 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 / f16: tensor cores, register-resident (FlashAttention-2 layout)
+// bf16 / f16: wgmma, softmax in registers
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_WARPS = 8;
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int MMA_BQ = MMA_WARPS * 16;  // query rows per block: 16 a warp
+constexpr int FWD_WARPS = 8;             // two warpgroups
+constexpr int FWD_THREADS = FWD_WARPS * 32;
+constexpr int FWD_BQ = FWD_WARPS * 16;  // query rows per block: 64 a warpgroup
 constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
 
 // the block's key tiles, compacted: entry = tile index * 2 + 1 if every key
@@ -91,11 +92,11 @@ __device__ int list_key_tiles(const float* bias_g, int N, int* list) {
   const int ntiles = (N + BK - 1) / BK;
   __shared__ int count;
   if (bias_g == nullptr) {
-    for (int j = tid; j < ntiles; j += MMA_THREADS) list[j] = 2 * j + ((j + 1) * BK <= N);
+    for (int j = tid; j < ntiles; j += FWD_THREADS) list[j] = 2 * j + ((j + 1) * BK <= N);
     __syncthreads();
     return ntiles;
   }
-  for (int j = warp; j < ntiles; j += MMA_WARPS) {  // flags: 0 skip, 1 partial, 3 full
+  for (int j = warp; j < ntiles; j += FWD_WARPS) {  // flags: 0 skip, 1 partial, 3 full
     int valid = 0, zero = 1;
 #pragma unroll
     for (int e = 0; e < BK / 32; ++e) {
@@ -124,31 +125,68 @@ __device__ int list_key_tiles(const float* bias_g, int N, int* list) {
   return count;
 }
 
+// Shared-memory layout of a [rows][DP] tile, as wgmma reads it: column
+// blocks of ROWB bytes a row (64 elements, or 32 when DP = 32), each block
+// [rows][ROWB] with its 16-byte chunks swizzled (128-byte rows: chunk c of
+// row r sits at c ^ (r % 8); 64-byte rows: at c ^ ((r / 2) % 4)). A tile
+// starts on a 1024-byte boundary.
+template <int DP>
+struct TileLayout {
+  static constexpr int ROWB = DP == 32 ? 64 : 128;
+  static constexpr int EPR = ROWB / 2;  // elements a row of a column block
+  static constexpr int CPB = ROWB / 16;  // 16-byte chunks a row of a column block
+  static constexpr int SWIZZLE = ROWB == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  // byte offset of 16-byte chunk c (elements 8c..8c+7) of row r
+  static __device__ __forceinline__ int offset(int r, int c, int rows) {
+    const int sw = ROWB == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / CPB) * rows * ROWB + r * ROWB + (((c % CPB) ^ sw) << 4);
+  }
+  // descriptor of a K-major operand (Q, K): rows of [rows][DP] from
+  // `first_row`, elements 16kk..16kk+15 along DP (8-row groups 8 * ROWB apart)
+  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int first_row,
+                                                     int kk) {
+    const int e = 16 * kk;
+    return make_desc(base + (e / EPR) * rows * ROWB + first_row * ROWB + (e % EPR) * 2, 16,
+                     8 * ROWB, SWIZZLE);
+  }
+  // descriptor of V (64 keys x DP) as the MN-major B operand: keys
+  // 16kt..16kt+15 (8-key groups 8 * ROWB apart, column blocks 64 * ROWB)
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kt) {
+    return make_desc(base + 16 * kt * ROWB, 64 * ROWB, 8 * ROWB, SWIZZLE);
+  }
+};
+
 // CLAMPED = K1 numerics (scale folded into q, no-max clamped softmax);
-// otherwise K3 numerics (scale on s, running max). DP = d padded to 32.
-// Logits are kept in log2 units: x = s * log2(e) (K1) or
-// s * scale * log2(e) (K3), plus bias * log2(e), and p = ex2(...).
+// otherwise K3 numerics (scale on s, running max). DP = d padded to 32, 64
+// or 128. Two warpgroups a block, each 64 query rows (warp w of the block
+// owns rows 16w..16w+15). Logits are kept in log2 units: x = s * log2(e)
+// (K1) or s * scale * log2(e) (K3), plus bias * log2(e), and p = ex2(...).
 //
-// Fragment layouts of mma.m16n8k16 (lane = 4*g + t): the f32 accumulator
-// c[0..1] is row g, columns 2t and 2t+1; c[2..3] is row g + 8, same
-// columns. So each thread holds two query rows (g and g + 8 of its warp's
-// 16) and, per 8-key tile, two keys of each.
+// The wgmma accumulators are laid out as mma.sync m16n8 tiles (wgmma.cuh):
+// s[4j..4j+3] and o[4j..4j+3] are 8-column tile j, entries 0-1 row g of
+// the warp's 16 (columns 2t, 2t+1), entries 2-3 row g + 8. So each thread
+// holds two query rows and, per 8-key tile, two keys of each; and the
+// scores of 8-key tiles 2kt and 2kt+1, rounded to T, are exactly the
+// register A operand of the PV product over keys 16kt..16kt+15.
 template <typename T, bool CLAMPED, int DP>
-__global__ void __launch_bounds__(MMA_THREADS, DP <= 64 ? 2 : 1)
-attn_fwd_mma_kernel(const Params prm) {
-  constexpr int LD = DP + 8;      // shared row stride: ldmatrix without bank conflicts
-  constexpr int CHUNKS = DP / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);
-  T* ring = sq + MMA_BQ * LD;                                             // [NSTAGE][K | V][BK][LD]
-  float* sbias = reinterpret_cast<float*>(ring + NSTAGE * 2 * BK * LD);  // [NSTAGE][BK]
+__global__ void __launch_bounds__(FWD_THREADS, DP <= 64 ? 2 : 1)
+attn_fwd_wgmma_kernel(const Params prm) {
+  using L = TileLayout<DP>;
+  constexpr int CHUNKS = DP / 8;                 // 16-byte chunks per row
+  constexpr int Q_BYTES = FWD_BQ * DP * 2;
+  constexpr int KV_BYTES = BK * DP * 2;          // one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sq = smem;
+  unsigned char* ring = sq + Q_BYTES;  // [NSTAGE][K | V]
+  float* sbias = reinterpret_cast<float*>(ring + NSTAGE * 2 * KV_BYTES);  // [NSTAGE][BK]
   int* list = reinterpret_cast<int*>(sbias + NSTAGE * BK);
 
   const int N = prm.N, d = prm.d;
-  const int q0 = blockIdx.x * MMA_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * FWD_BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int lm = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row
 
   const T* qg = static_cast<const T*>(prm.q) + b * prm.q_sb + h * prm.q_sh;
   const T* kg = static_cast<const T*>(prm.k) + b * prm.k_sb + h * prm.k_sh;
@@ -156,10 +194,10 @@ attn_fwd_mma_kernel(const Params prm) {
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
 
   // q tile -> shared (rows past N, columns past d zero): copy group 0
-  for (int i = tid; i < MMA_BQ * CHUNKS; i += MMA_THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = q0 + r;
-    const bool in = row < N && c < d;
-    cp_async16(sq + r * LD + c, in ? qg + row * prm.q_sn + c : qg, in);
+  for (int i = tid; i < FWD_BQ * CHUNKS; i += FWD_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS, row = q0 + r;
+    const bool in = row < N && 8 * c < d;
+    cp_async16(sq + L::offset(r, c, FWD_BQ), in ? qg + row * prm.q_sn + 8 * c : qg, in);
   }
   cp_async_commit();
   const int ntiles = list_key_tiles(bias_g, N, list);
@@ -170,13 +208,14 @@ attn_fwd_mma_kernel(const Params prm) {
   auto load_tile = [&](int i) {
     if (i < ntiles) {
       const int e = list[i], k0 = (e >> 1) * BK, slot = i % NSTAGE;
-      T* sk = ring + slot * 2 * BK * LD;
-      T* sv = sk + BK * LD;
-      for (int c = tid; c < BK * CHUNKS; c += MMA_THREADS) {
-        const int r = c / CHUNKS, col = (c % CHUNKS) * 8, key = k0 + r;
-        const bool in = key < N && col < d;
-        cp_async16(sk + r * LD + col, in ? kg + key * prm.k_sn + col : kg, in);
-        cp_async16(sv + r * LD + col, in ? vg + key * prm.v_sn + col : vg, in);
+      unsigned char* sk = ring + slot * 2 * KV_BYTES;
+      unsigned char* sv = sk + KV_BYTES;
+      for (int j = tid; j < BK * CHUNKS; j += FWD_THREADS) {
+        const int r = j / CHUNKS, c = j % CHUNKS, key = k0 + r;
+        const bool in = key < N && 8 * c < d;
+        const int off = L::offset(r, c, BK);
+        cp_async16(sk + off, in ? kg + key * prm.k_sn + 8 * c : kg, in);
+        cp_async16(sv + off, in ? vg + key * prm.v_sn + 8 * c : vg, in);
       }
       if (bias_g && !(e & 1) && tid < BK) {
         const bool in = k0 + tid < N;
@@ -189,17 +228,29 @@ attn_fwd_mma_kernel(const Params prm) {
   for (int i = 0; i < NSTAGE - 1; ++i) load_tile(i);
 
   cp_async_wait<NSTAGE - 1>();  // the q tile
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
+  if (CLAMPED) {
+    // (q * scale) in f32, rounded back to T, as on the TPU: in place, each
+    // thread on the chunks it copied (zero chunks stay zero)
+    for (int i = tid; i < FWD_BQ * CHUNKS; i += FWD_THREADS) {
+      uint32_t* w = reinterpret_cast<uint32_t*>(sq + L::offset(i / CHUNKS, i % CHUNKS, FWD_BQ));
 #pragma unroll
-  for (int kt = 0; kt < DP / 16; ++kt) {
-    ldmatrix_x4(qf[kt], sq + (warp * 16 + lane % 16) * LD + kt * 16 + (lane / 16) * 8);
-    if (CLAMPED) scale_frag<T>(qf[kt], prm.scale);  // (q * scale) in f32, rounded to T
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = Mma<T>::unpack(w[j]);
+        w[j] = Mma<T>::pack(x.x * prm.scale, x.y * prm.scale);
+      }
+    }
   }
+  fence_proxy_async();
+  __syncthreads();
 
-  float o[DP / 8][4];
+  const uint32_t sq_addr = smem_addr(sq), ring_addr = smem_addr(ring);
+  const int q_row = 64 * (warp / 4);  // this warpgroup's first row of the q tile
+  float s[BK / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m_row[2] = {NEG_BIAS, NEG_BIAS};  // running max in log2 units (K3)
   float l_row[2] = {0.0f, 0.0f};          // this thread's part of the row sums
   // x = s * xs (+ bias * log2e): K1's s already carries the scale
@@ -207,38 +258,31 @@ attn_fwd_mma_kernel(const Params prm) {
   constexpr float CLAMP2 = SOFTMAX_CLAMP * LOG2E;
 
   for (int i = 0; i < ntiles; ++i) {
-    // tile i has landed for every thread, and every warp is done with tile
-    // i - 1, whose slot the copy below refills
+    // tile i has landed for every thread and is visible to wgmma, and every
+    // warpgroup is done with tile i - 1, whose slot the copy below refills
     cp_async_wait<NSTAGE - 2>();
+    fence_proxy_async();
     __syncthreads();
     load_tile(i + NSTAGE - 1);
     const int e = list[i], k0 = (e >> 1) * BK, slot = i % NSTAGE;
-    const T* sk = ring + slot * 2 * BK * LD;
-    const T* sv = sk + BK * LD;
+    const uint32_t sk_addr = ring_addr + slot * 2 * KV_BYTES, sv_addr = sk_addr + KV_BYTES;
 
-    // s = q . k^T: eight 8-key tiles; ldmatrix gives two tiles' B operands
-    float s[BK / 8][4];
+    // s = q . k^T over 64 keys, both operands in shared memory
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < DP / 16; ++kt) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kb[4];  // keys np*16 + {0-7, 0-7, 8-15, 8-15}, dims kt*16 + {0-7, 8-15, ...}
-        ldmatrix_x4(kb, sk + (np * 16 + lr + (lm / 2) * 8) * LD + kt * 16 + (lm % 2) * 8);
-        Mma<T>::run(s[2 * np], qf[kt], kb[0], kb[1]);
-        Mma<T>::run(s[2 * np + 1], qf[kt], kb[2], kb[3]);
-      }
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      WgmmaSS<T>::n64(s, L::k_major(sq_addr, FWD_BQ, q_row, kk),
+                      L::k_major(sk_addr, BK, 0, kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
     // logits in log2 units; a partial tile adds its bias (keys past N get
     // the masked bias, so p = 0 exactly)
     if (e & 1) {
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] *= xs;
-      }
+      for (int j = 0; j < BK / 2; ++j) s[j] *= xs;
     } else {
       const float* sb = sbias + slot * BK;
 #pragma unroll
@@ -247,8 +291,8 @@ attn_fwd_mma_kernel(const Params prm) {
         for (int c = 0; c < 2; ++c) {
           const int col = nt * 8 + 2 * t + c;
           const float bl = (k0 + col < N ? (bias_g ? sb[col] : 0.0f) : NEG_BIAS) * LOG2E;
-          s[nt][c] = fmaf(s[nt][c], xs, bl);
-          s[nt][2 + c] = fmaf(s[nt][2 + c], xs, bl);
+          s[4 * nt + c] = fmaf(s[4 * nt + c], xs, bl);
+          s[4 * nt + 2 + c] = fmaf(s[4 * nt + 2 + c], xs, bl);
         }
       }
     }
@@ -256,8 +300,8 @@ attn_fwd_mma_kernel(const Params prm) {
       float mx[2] = {NEG_BIAS, NEG_BIAS};
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * nt], s[4 * nt + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -267,39 +311,33 @@ attn_fwd_mma_kernel(const Params prm) {
         l_row[r] *= corr;
 #pragma unroll
         for (int dt = 0; dt < DP / 8; ++dt) {
-          o[dt][2 * r] *= corr;
-          o[dt][2 * r + 1] *= corr;
+          o[4 * dt + 2 * r] *= corr;
+          o[4 * dt + 2 * r + 1] *= corr;
         }
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = s[nt][j];
-        s[nt][j] = CLAMPED ? ex2(fminf(x, CLAMP2)) : ex2(x - m_row[j / 2]);
-        l_row[j / 2] += s[nt][j];
-      }
+    for (int j = 0; j < BK / 2; ++j) {
+      const float x = s[j];
+      s[j] = CLAMPED ? ex2(fminf(x, CLAMP2)) : ex2(x - m_row[(j / 2) % 2]);
+      l_row[(j / 2) % 2] += s[j];
     }
 
-    // o += p . v: the accumulators of 8-key tiles 2kt and 2kt+1, rounded to
-    // T, are the A operand of 16 keys; ldmatrix.trans gives V's B operands
+    // o += p . v: p rounded to T from registers, V from shared memory
+    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kt = 0; kt < BK / 16; ++kt) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * kt][0], s[2 * kt][1]),
-          Mma<T>::pack(s[2 * kt][2], s[2 * kt][3]),
-          Mma<T>::pack(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          Mma<T>::pack(s[2 * kt + 1][2], s[2 * kt + 1][3]),
-      };
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t vb[4];  // keys kt*16 + {0-7, 8-15, 0-7, 8-15}, dims dp*16 + {0-7, 0-7, 8-15, 8-15}
-        ldmatrix_x4_trans(vb, sv + (kt * 16 + lr + (lm % 2) * 8) * LD + dp * 16 + (lm / 2) * 8);
-        Mma<T>::run(o[2 * dp], pa, vb[0], vb[1]);
-        Mma<T>::run(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
+      pa[kt][0] = Mma<T>::pack(s[8 * kt], s[8 * kt + 1]);
+      pa[kt][1] = Mma<T>::pack(s[8 * kt + 2], s[8 * kt + 3]);
+      pa[kt][2] = Mma<T>::pack(s[8 * kt + 4], s[8 * kt + 5]);
+      pa[kt][3] = Mma<T>::pack(s[8 * kt + 6], s[8 * kt + 7]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt) WgmmaRS<T, DP>::run(o, pa[kt], L::mn_major(sv_addr, kt));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
   }
   cp_async_wait_all();  // no copy may still target shared memory at exit
 
@@ -314,7 +352,7 @@ attn_fwd_mma_kernel(const Params prm) {
       const int c = dt * 8 + 2 * t;
       if (c < d) {
         *reinterpret_cast<uint32_t*>(og + row * prm.o_sn + c) =
-            Mma<T>::pack(o[dt][2 * r] / l, o[dt][2 * r + 1] / l);
+            Mma<T>::pack(o[4 * dt + 2 * r] / l, o[4 * dt + 2 * r + 1] / l);
       }
     }
     if (t == 0) {
@@ -441,20 +479,20 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_f32_kernel(const Params prm
 dim3 grid_of(const Params& p, int bq) { return dim3((p.N + bq - 1) / bq, p.H, p.B); }
 
 template <typename T, bool CLAMPED, int DP>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   const int ntiles = (p.N + BK - 1) / BK;
-  const size_t smem = sizeof(T) * (MMA_BQ + NSTAGE * 2 * BK) * (DP + 8) +
-                      sizeof(float) * NSTAGE * BK + sizeof(int) * ntiles;
-  return launch_kernel(attn_fwd_mma_kernel<T, CLAMPED, DP>, grid_of(p, MMA_BQ), smem, p,
-                       stream, MMA_THREADS);
+  // + 1024: the kernel aligns its tiles to 1024 bytes (the swizzle's period)
+  const size_t smem = 2 * (FWD_BQ + NSTAGE * 2 * BK) * DP + sizeof(float) * NSTAGE * BK +
+                      sizeof(int) * ntiles + 1024;
+  return launch_kernel(attn_fwd_wgmma_kernel<T, CLAMPED, DP>, grid_of(p, FWD_BQ), smem, p,
+                       stream, FWD_THREADS);
 }
 
 template <typename T, bool CLAMPED>
 cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch_mma<T, CLAMPED, 32>(p, stream);
-  if (p.d <= 64) return launch_mma<T, CLAMPED, 64>(p, stream);
-  if (p.d <= 96) return launch_mma<T, CLAMPED, 96>(p, stream);
-  return launch_mma<T, CLAMPED, 128>(p, stream);
+  if (p.d <= 32) return launch_wgmma<T, CLAMPED, 32>(p, stream);
+  if (p.d <= 64) return launch_wgmma<T, CLAMPED, 64>(p, stream);
+  return launch_wgmma<T, CLAMPED, 128>(p, stream);
 }
 
 template <bool CLAMPED>
