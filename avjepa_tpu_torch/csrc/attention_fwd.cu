@@ -17,40 +17,48 @@
 // What bounds it on the H100: at N = 1664 and d = 64 (ViT-L serving) each
 // (batch, head) does 4*N^2*d = 0.71 GFLOP of QK^T and PV products against
 // about 0.85 MB of q/k/v/o traffic, far above the ~295 flop/byte ridge, so
-// the two products bound it at full tiles and they belong on tensor cores.
-// But a score costs 4*d = 256 tensor-core operations at d = 64 (96 at
-// d = 24), about 1/16 of an SM clock at the peak rate, while its softmax
-// work runs on 128 scalar lanes a clock: each instruction per score costs
-// as much as the products. So the design spends as few as it can.
+// the products bound it at full tiles and they belong on tensor cores. But
+// a score costs 4*d = 256 tensor-core operations at d = 64 (128 at d = 24
+// padded to 32): at the peak rate a 64x64 tile's products take ~256 SM
+// clocks, and its 4096 exponentials take as long again on the SM's 16
+// MUFU lanes, so the softmax work sets a second floor as high as the
+// products', and every other scalar instruction per score adds to it.
 //
 // Design (one 16-bit kernel for K1 and K3, templated on the numerics):
-// - 8 warps a block, 16 query rows each: 128 rows share every K/V tile.
-//   The q tile is loaded once into registers (K1 scales and rounds it).
+// - Two warpgroups a block, 64 query rows each: 128 rows share every K/V
+//   tile. S = Q.K^T is wgmma m64n64k16 with both operands in shared memory
+//   (SS); O += P.V is wgmma m64nDPk16 with P from registers (the S
+//   accumulator, exp2'ed and rounded to T, is exactly the A fragment) and V
+//   read as an MN-major operand (the transpose flag). Tiles are stored as
+//   wgmma reads them (TileLayout): 128-byte swizzled rows for d = 64 and
+//   two 64-element column blocks for d = 128, 64-byte rows for d = 32.
 // - A block first lists its 64-key tiles: a tile whose keys are all masked
 //   or past N is left out (skipped, never read); a "full" tile (every key
 //   below N with bias exactly 0) takes a path with no bias add. With no mask
 //   every tile but a ragged last one is full.
 // - K/V tiles (and a partial tile's 64 biases) stream through a 3-slot
-//   cp.async ring (commit_group / wait_group): tiles j+1 and j+2 are in
-//   flight while tile j is computed; one barrier a tile.
-// - Both products are mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix;
-//   scores, probabilities, softmax statistics and the output accumulator
-//   never leave registers (the FlashAttention-2 layout: the score
-//   accumulator of two 8-key tiles is exactly the A operand of the PV
-//   product).
+//   cp.async ring (commit_group / wait_group), whose copies write the
+//   swizzled addresses: tiles j+1 and j+2 are in flight while tile j is
+//   computed; one barrier a tile.
 // - Logits are in log2 units and p = ex2.approx (one MUFU op): K1 computes
 //   min(s * log2e, 80 * log2e) (the same f32 value as min(s, 80) * log2e),
 //   K3 folds scale * log2e and bias * log2e into one FFMA and keeps its
 //   running max in log2 units. lse is written back in natural units; a K3
 //   row that saw no valid key writes -1e30 + log(1e-30), the plain
 //   version's value, exactly.
-// - head_dim is zero-padded to 32, 64, 96 or 128 in shared memory and
-//   registers only (d = 24 runs as 32), never in device memory.
+// - head_dim is zero-padded to 32, 64 or 128 in shared memory and registers
+//   only (d = 24 runs as 32, d = 80 as 128), never in device memory.
 // f32 inputs (exact comparisons, not speed) take a simple kernel: shared
 // memory tiles and FMA loops, accurate expf.
-// Not yet used: wgmma, TMA, mbarriers, warp specialisation, persistent
-// blocks (the H100's mma.sync path reaches only part of its tensor-core
-// rate: see PERF.md).
+//
+// Each warpgroup runs S, waits, runs its softmax, runs PV, waits, and the
+// two warpgroups of a block meet at every tile's barrier, so the tensor
+// cores idle during a block's softmax unless the SM's other block fills
+// them. Measured on the H100 (PERF.md, PR 5): overlapping the softmax with
+// the previous tile's PV in the same warpgroup, 1 or 4 warpgroups a block,
+// or a shallower ring did not help. Not yet used: TMA and mbarriers, warp
+// specialisation with a producer warp, warpgroup ping-pong, setmaxnreg,
+// persistent blocks.
 
 #include "attention_common.cuh"
 #include "wgmma.cuh"
@@ -83,6 +91,11 @@ constexpr int FWD_WARPS = 8;             // two warpgroups
 constexpr int FWD_THREADS = FWD_WARPS * 32;
 constexpr int FWD_BQ = FWD_WARPS * 16;  // query rows per block: 64 a warpgroup
 constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
+
+// blocks a SM, which caps registers: 3 at DP = 32 (o is 16 registers a
+// thread; the third block takes the d = 24 calls from 0.58 to 0.51 ms), 2 at
+// DP = 64 (3 would spill), 1 at DP = 128
+constexpr int fwd_blocks_per_sm(int dp) { return dp <= 32 ? 3 : dp <= 64 ? 2 : 1; }
 
 // the block's key tiles, compacted: entry = tile index * 2 + 1 if every key
 // of the tile is below N with bias exactly 0 ("full": no bias add), + 0 else.
@@ -169,7 +182,7 @@ struct TileLayout {
 // scores of 8-key tiles 2kt and 2kt+1, rounded to T, are exactly the
 // register A operand of the PV product over keys 16kt..16kt+15.
 template <typename T, bool CLAMPED, int DP>
-__global__ void __launch_bounds__(FWD_THREADS, DP <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_blocks_per_sm(DP))
 attn_fwd_wgmma_kernel(const Params prm) {
   using L = TileLayout<DP>;
   constexpr int CHUNKS = DP / 8;                 // 16-byte chunks per row
@@ -323,7 +336,7 @@ attn_fwd_wgmma_kernel(const Params prm) {
       l_row[(j / 2) % 2] += s[j];
     }
 
-    // o += p . v: p rounded to T from registers, V from shared memory
+    // o += p . v: p rounded to T, from registers; V from shared memory
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kt = 0; kt < BK / 16; ++kt) {
@@ -338,6 +351,7 @@ attn_fwd_wgmma_kernel(const Params prm) {
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    fence_regs(pa);
   }
   cp_async_wait_all();  // no copy may still target shared memory at exit
 

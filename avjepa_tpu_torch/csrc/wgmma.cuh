@@ -54,6 +54,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[M]) {
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// the same for a register A operand, which an issued wgmma reads until its
+// wait: its registers must not be reused before then
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+  }
+}
+
 // shared memory written by cp.async (the generic proxy) is made visible to
 // wgmma's reads (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {

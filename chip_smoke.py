@@ -10,15 +10,18 @@ exits non-zero:
   2. build the CUDA kernels from avjepa_tpu_torch/csrc, one nvcc per source,
      all started together;
   3. each kernel against its plain PyTorch version on the card: the forward
-     kernels in bf16, f16 and f32 at the serving shapes, the backward
-     kernels in bf16 and f32 at the training slice's shapes (with sentinel
-     tails, an empty batch row, ragged N and saturated logits); then each
-     kernel's time beside its plain version's, one PyTorch library call's
-     (scaled_dot_product_attention, forward or backward) and its bound;
+     kernels in bf16, f16 and f32 at the serving shapes (head_dim 24, 64 and
+     80, ragged N, an empty batch row), with their registers and spills from
+     the build log; the backward kernels in bf16 and f32 at the training
+     slice's shapes (with sentinel tails, an empty batch row, ragged N and
+     saturated logits); then each kernel's time beside its plain version's,
+     one PyTorch library call's (scaled_dot_product_attention, forward or
+     backward) and its bound;
   4. the extract app through its CLI entry: ViT-L/16 AV, bf16, batch 24,
      96 synthetic clips of 16x224^2 video + 128x192 mel (1664 tokens), from
      a random encoder; then vit_tiny (3 heads, the classic kernel) for one
-     batch; one batch is re-encoded through the plain attention and compared;
+     batch; one batch is re-encoded through the plain attention and
+     compared, and profiled (chiprun_out/extract_profile.txt);
   5. the pretrain app: ViT-L/16 AV (av-vitl16.yaml: bf16, batch 24, remat,
      synthetic clips) for 6 steps through train.pretrain, then the extract
      app reading its checkpoint's target encoder; vit_tiny (av-vitt16.yaml,
@@ -45,6 +48,11 @@ Every run of phases 4-5 and 9 is driven with the kernels' launch counts set
 to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
+
+Phases run alone too; the forward kernels, for instance:
+    python3 -c 'import chip_smoke as c, tempfile; c.toolchain(); c.build();
+        c.check_kernels(); c.time_kernels();
+        c.time_probe_k1(*c.probe_masks(tempfile.mkdtemp()))'
 """
 
 from __future__ import annotations
@@ -483,6 +491,32 @@ def plain_packed_attention():
         modules.flash_attention_qkv = kernel
 
 
+def _profile(run, label: str, filename: str, steps: int = 2) -> float:
+    """torch.profiler over ``steps`` calls of ``run``: the device time by
+    kernel written to chiprun_out/<filename>; prints the device kernel ms per
+    call, the top kernels and the forward attention kernel's share. Returns
+    the device kernel ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / (1e3 * steps)
+    fwd = sum(e.self_device_time_total for e in events
+              if "attn_fwd" in e.key) / (1e3 * steps)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"{label}: profile, {total:.1f} ms of device kernels per call; forward attention "
+          f"kernel {fwd:.1f} ms ({100 * fwd / total:.1f}%); top: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / (1e3 * steps):.2f} ms" for e in top))
+    return total
+
+
 def run_slice(workdir: str) -> dict:
     import numpy as np
     import torch
@@ -559,6 +593,8 @@ def run_slice(workdir: str) -> dict:
     print(f"slice: encode (encoder + feature LN + pool) {ms_batch:.2f} ms per batch of "
           f"{batch} on the device (CUDA events); peak allocated "
           f"{peak / 2**30:.2f} GiB")
+    _profile(lambda: ext.encode(encoder, video, audio, cfg.extract), "slice: encode",
+             "extract_profile.txt")
     return launches
 
 
@@ -723,10 +759,9 @@ def check_train_vs_plain(workdir: str, batch: int = 4) -> None:
 def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
     """ViT-L AV train step on a resident batch of 24, with per-block remat
     (the YAML's setting) or without: ms by CUDA events, clips/s, peak memory;
-    with remat, then a torch.profiler window of 2 steps, with the device time
-    by kernel written to chiprun_out/train_profile.txt."""
+    with remat, then a torch.profiler window of 2 steps (_profile, to
+    chiprun_out/train_profile.txt)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from avjepa_tpu_torch.config import load_config
     from avjepa_tpu_torch.train import pretrain
@@ -754,19 +789,7 @@ def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
     result = {"step_ms": ms, "clips_per_s": 1000 * b / ms, "peak_gib": peak / 2**30}
     if not remat:
         return result
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            run()
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "train_profile.txt"), "w") as f:
-        f.write(table)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total = sum(e.self_device_time_total for e in events) / 2e3  # ms per step
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"train: profile, {total:.1f} ms of device kernels per step; top: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 2e3:.2f} ms" for e in top))
+    _profile(run, "train: ViT-L AV step", "train_profile.txt")
     return result
 
 
@@ -1022,7 +1045,6 @@ def time_probe_step(workdir: str, ckpt: str, steps: int = 5) -> dict:
     to chiprun_out/probe_profile.txt), then K1 at the path's two shapes on
     this batch's masks (time_probe_k1)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from avjepa_tpu_torch.config import load_config
     from avjepa_tpu_torch.train import avprediction as ap
@@ -1049,18 +1071,7 @@ def time_probe_step(workdir: str, ckpt: str, steps: int = 5) -> dict:
           f"steps; frozen encoder + predictor + probe forward/backward + AdamW), "
           f"{1000 * b / ms:.2f} clips/s; peak allocated {peak / 2**30:.2f} GiB")
     result = {"step_ms": ms, "peak_gib": peak / 2**30}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            run()
-        torch.cuda.synchronize()
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "probe_profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total = sum(e.self_device_time_total for e in events) / 2e3  # ms per step
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"avpred: profile, {total:.1f} ms of device kernels per probe step; top: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 2e3:.2f} ms" for e in top))
+    _profile(run, "avpred: probe step", "probe_profile.txt")
 
     result.update(time_probe_k1(inputs[2][0], inputs[3][0]))
     return result
