@@ -245,12 +245,8 @@ attn_fwd_wgmma_kernel(const Params prm) {
     // (q * scale) in f32, rounded back to T, as on the TPU: in place, each
     // thread on the chunks it copied (zero chunks stay zero)
     for (int i = tid; i < FWD_BQ * CHUNKS; i += FWD_THREADS) {
-      uint32_t* w = reinterpret_cast<uint32_t*>(sq + L::offset(i / CHUNKS, i % CHUNKS, FWD_BQ));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 x = Mma<T>::unpack(w[j]);
-        w[j] = Mma<T>::pack(x.x * prm.scale, x.y * prm.scale);
-      }
+      const int off = L::offset(i / CHUNKS, i % CHUNKS, FWD_BQ);
+      scale_frag<T>(*reinterpret_cast<uint32_t(*)[4]>(sq + off), prm.scale);
     }
   }
   fence_proxy_async();
@@ -518,7 +514,8 @@ int dispatch(int dtype, const Params& p, void* stream) {
   if (dtype == 0) {
     const int ld = p.d + 1;
     const size_t smem = sizeof(float) * ((BQ + 2 * BK) * ld + BQ * F32_LDS + BQ * ld + 2 * BQ);
-    return static_cast<int>(launch_kernel(attn_fwd_f32_kernel<CLAMPED>, grid_of(p, BQ), smem, p, s));
+    return static_cast<int>(
+        launch_kernel(attn_fwd_f32_kernel<CLAMPED>, grid_of(p, BQ), smem, p, s));
   }
   // the 16-bit kernel copies 16-byte chunks: 8-element rows, aligned
   if (p.d % 8 || !aligned16(p.q, p.q_sb, p.q_sh, p.q_sn) ||
