@@ -24,7 +24,8 @@
 // MUFU lanes, so the softmax work sets a second floor as high as the
 // products', and every other scalar instruction per score adds to it.
 //
-// Design (one 16-bit kernel for K1 and K3, templated on the numerics):
+// Design (one 16-bit kernel for K1 and K3, templated on the numerics; an
+// earlier version ran the same tile list, ring and softmax on mma.sync):
 // - Two warpgroups a block, 64 query rows each: 128 rows share every K/V
 //   tile. S = Q.K^T is wgmma m64n64k16 with both operands in shared memory
 //   (SS); O += P.V is wgmma m64nDPk16 with P from registers (the S
@@ -54,7 +55,7 @@
 // Each warpgroup runs S, waits, runs its softmax, runs PV, waits, and the
 // two warpgroups of a block meet at every tile's barrier, so the tensor
 // cores idle during a block's softmax unless the SM's other block fills
-// them. Measured on the H100 (PERF.md, PR 5): overlapping the softmax with
+// them. Measured on an H100 (PERF.md): overlapping the softmax with
 // the previous tile's PV in the same warpgroup, 1 or 4 warpgroups a block,
 // or a shallower ring did not help. Not yet used: TMA and mbarriers, warp
 // specialisation with a producer warp, warpgroup ping-pong, setmaxnreg,
@@ -93,8 +94,8 @@ constexpr int FWD_BQ = FWD_WARPS * 16;  // query rows per block: 64 a warpgroup
 constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
 
 // blocks a SM, which caps registers: 3 at DP = 32 (o is 16 registers a
-// thread; the third block takes the d = 24 calls from 0.58 to 0.51 ms), 2 at
-// DP = 64 (3 would spill), 1 at DP = 128
+// thread; on an H100 the third block takes the d = 24 calls from 0.58 to
+// 0.51 ms), 2 at DP = 64 (3 would spill), 1 at DP = 128
 constexpr int fwd_blocks_per_sm(int dp) { return dp <= 32 ? 3 : dp <= 64 ? 2 : 1; }
 
 // the block's key tiles, compacted: entry = tile index * 2 + 1 if every key

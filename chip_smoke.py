@@ -241,10 +241,12 @@ def check_kernels() -> dict:
                 main_err["fwd_packed"] = err
             del qkv, got
         # K3, classic [B, H, N, d]: unmasked; one fully-masked 128-key
-        # block; ragged N; random keys with batch row 0 fully masked
-        for b, n, kind in ((24, 1664, None), (24, 1664, "block"), (2, 200, None),
-                           (4, 1664, "empty row")):
-            h, d = 3, 64
+        # block; ragged N; random keys with batch row 0 fully masked, at
+        # head_dim 64, 24 and 80
+        for b, n, d, kind in ((24, 1664, 64, None), (24, 1664, 64, "block"),
+                              (2, 200, 64, None), (4, 1664, 64, "empty row"),
+                              (4, 1408, 24, "empty row"), (4, 1664, 80, "empty row")):
+            h = 3
             q, k, v = (randn((b, h, n, d), dtype) for _ in range(3))
             mask = None
             if kind is not None:
