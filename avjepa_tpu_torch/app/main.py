@@ -3,6 +3,9 @@
 Same YAML schema and CLI shape as ``avjepa_tpu/app/main.py``. One process
 drives one device: the GPU (``--device cuda``, the default), or the CPU when
 ``--device cpu`` asks for it. There is no ``torch.distributed`` yet.
+``AVJEPA_RESUME_PREEMPT=1`` passes ``resume_preempt`` to the app, which then
+resumes from its latest checkpoint (a SIGTERM'd run requeued by its
+supervisor).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import yaml
 def launch(fname: str, dump_dir: str | None = None, device: str = "cuda"):
     from avjepa_tpu_torch.config import load_config
     from avjepa_tpu_torch.registry import app_main
+    from avjepa_tpu_torch.utils import env_flag
     from avjepa_tpu_torch.utils.device import resolve_device
     from avjepa_tpu_torch.utils.logging import get_logger
 
@@ -33,7 +37,10 @@ def launch(fname: str, dump_dir: str | None = None, device: str = "cuda"):
         yaml.safe_dump(params, f)
 
     logger.info(f"launching app '{cfg.app}' on {device}")
-    return app_main(cfg.app, params, device=device)
+    resume_preempt = env_flag("AVJEPA_RESUME_PREEMPT")
+    if resume_preempt:
+        logger.info("AVJEPA_RESUME_PREEMPT=1: resuming from latest checkpoint")
+    return app_main(cfg.app, params, resume_preempt=resume_preempt, device=device)
 
 
 def parse_args(argv=None):

@@ -21,38 +21,54 @@
 // kernels (its keys' p is 0, so this changes no bit), which also gives 0 for
 // a batch row with no valid key at all.
 //
-// What bounds it on the H100: five N x N x d products per (batch, head) --
-// 10*N^2*d flops, 1.8 GFLOP at N = 1664, d = 64 -- against ~1.3 MB of
-// q/k/v/o/dO/dq/dk/dv traffic; far above the ~295 flop/byte ridge, so the
-// tensor cores bound it, and here the two-pass design does 7 products, not 5.
+// What bounds it on the H100: per (batch, head) the two passes below do
+// seven N x N x d products (14*N^2*d flops with d padded as stated) and two
+// exponentials a valid score. At d = 64 the products dominate: 10*N^2*d
+// flops of the contract against ~1.3 MB of q/k/v/o/dO/dq/dk/dv traffic, far
+// above the ~295 flop/byte ridge. At d = 24 (the ViT-L predictor) a score
+// costs only ~400 tensor-core flops in all, and the exponentials (16 a
+// clock on an SM's MUFU units) and the scalar work around them (~10 f32
+// instructions a score and pass) take longer than the products: that, not
+// the two passes, is the floor there.
 //
 // Design: two passes, deterministic. The TPU grid runs in order, so its
 // kernel carries dq in VMEM scratch across key blocks; Hopper blocks run in
 // parallel in no order, so a cross-block sum needs atomics or a second pass.
 // This port takes the second pass (no f32 dq buffer, no atomics, the same
-// bits on every run), at the price of recomputing s and dp:
-//   pass 1 (dk, dv): one block of 4 warps per (64-key tile, head, batch);
-//     each warp owns 16 keys and loops over every query tile, computing
-//     s^T = k.q^T and dp^T = v.dO^T with keys as the MMA rows, so p^T and
+// bits on every run), at the price of recomputing s and dp. A single pass
+// with f32 atomics into dq would save two of the seven products and half
+// the exponentials, and give up bit-identical runs.
+//   pass 1 (dk, dv): a block of 8 warps owns 128 keys (4 warps, 64 keys,
+//     where the grid would have fewer than 4 blocks a SM, or at d > 64);
+//     each warp owns 16 keys and walks every query tile, computing
+//     s^T = k.qs^T and dp^T = v.dO^T with keys as the MMA rows, so p^T and
 //     ds^T stay in registers and are exactly the A operand of
-//     dv += p^T.dO and dk += ds^T.q (FlashAttention-2 layout);
-//   pass 2 (dq): one block per (64-query tile, head, batch); each warp owns
-//     16 queries and loops over the key tiles: s = q.k^T, dp = dO.v^T,
-//     ds in registers, dq += ds.k.
-// Products are mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix from
-// shared-memory tiles that cp.async fills; d is zero-padded to a multiple of
-// 32 in shared memory and registers only (d = 24 runs as 32), and only the d
-// real columns are written. At d > 64 pass 1 takes 32-query tiles so that
-// dk, dv, s and dp (160 f32 registers a thread) do not spill. f32 inputs
-// (exact comparisons, not speed) take simple FMA kernels over 32 x 32
-// shared-memory tiles. Not yet used: wgmma, TMA, double buffering.
+//     dv += p^T.dO and dk += ds^T.qs (FlashAttention-2 layout). A block
+//     whose keys are all masked does no work; a "full" block (every key
+//     below N with bias exactly 0) runs its whole loop without a bias add.
+//   pass 2 (dq): a block owns 128 (or 64) queries and first lists its 64-key
+//     tiles (list_key_tiles): all-masked tiles are left out, full tiles add
+//     no bias, a partial tile's 64 biases are staged in shared memory with
+//     its K/V copy. Each warp owns 16 queries: s = qs.k^T, dp = dO.v^T, ds
+//     in registers, dq += ds.ks.
+// Streamed tiles (pass 1: q, dO, lse and delta; pass 2: K, V and a partial
+// tile's bias) go through a 3-slot cp.async ring (2 slots where 3 would
+// leave one block a SM): tiles j+1 and j+2 are in flight while tile j is
+// computed, one barrier a tile. The threads that copied a tile finish it
+// when it lands: qs = T(q * scale) in place (pass 1), a ks = T(k * scale)
+// copy (pass 2), lse into log2 units. Scores are in log2 units with one
+// MUFU ex2 each (p_ds2). Products are mma.sync m16n8k16 (f32 accumulate)
+// fed by ldmatrix; S and dP reduce over d zero-padded to a multiple of 16
+// in shared memory and registers only (24 runs as 32), dK, dV and dQ
+// accumulate over d rounded up to 8 (24 runs at 24), and only the d real
+// columns are written. f32 inputs (exact comparisons, not speed) take
+// simple FMA kernels over 32 x 32 shared-memory tiles with the accurate
+// expf. Not yet used: wgmma, TMA, warp specialisation.
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int BT = 64;   // rows (keys in pass 1, queries in pass 2) per block
-constexpr int KT = 64;   // key tile of pass 2
 constexpr int FT = 32;   // f32 kernels: tile of keys and of queries
 constexpr float PAD_LSE = 1e30f;  // lse of a query row past N: p = 0
 
@@ -80,7 +96,8 @@ struct Params {
 };
 
 // p and ds of one score from s (the raw product, before scale and bias) and
-// dp; CLAMPED = K2 numerics (scale already in q), else K4's
+// dp, in full f32 with the accurate expf: the f32 kernels' arithmetic;
+// CLAMPED = K2 numerics (scale already in q), else K4's
 template <bool CLAMPED>
 __device__ __forceinline__ void p_ds(float& s, float& dp, float bias, float lse,
                                      float delta, float scale) {
@@ -101,36 +118,206 @@ __device__ __forceinline__ void p_ds(float& s, float& dp, float bias, float lse,
 // bf16 / f16: tensor cores
 // ---------------------------------------------------------------------------
 
-// Copy a [rows, DP] tile (rows from `row0`, zero past N and past d) into
-// shared memory with row stride LD.
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, int row0,
-                                          int N, int d, int tid) {
-  constexpr int LD = DP + 8, CHUNKS = DP / 8;
-  for (int i = tid; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = row0 + r;
-    const bool in = row < N && c < d;
-    cp_async16(dst + r * LD + c, in ? src + row * sn + c : src, in);
+// The same in log2 units, for the 16-bit kernels, with the score's query
+// row given as nl = -lse * log2(e) (-1e30 past N: p = 0) and, for K2, c2 =
+// 80 * log2(e) + nl; p = 2^x in one MUFU op. K2: x = min(s * log2e + nl,
+// c2), the clamp min(s, 80) - lse in log2 units, and the clamp test on s in
+// natural units (s * log2e could round across 80 * log2e where s does
+// not); K4: x = s * (scale * log2e) + nl in one FFMA. A FULL tile adds no
+// bias; otherwise `bias` is the key's, natural units for K2 and times
+// log2(e) for K4 (-1e30 for a masked key or one past N: p = 0 exactly).
+template <bool CLAMPED, bool FULL>
+__device__ __forceinline__ void p_ds2(float& s, float& dp, float bias, float nl, float c2,
+                                      float delta, float scale) {
+  if (CLAMPED) {
+    const float x = FULL ? s : s + bias;
+    const float p = ex2(fminf(fmaf(x, LOG2E, nl), c2));
+    dp = x < SOFTMAX_CLAMP ? p * (dp - delta) : 0.0f;
+    s = p;
+  } else {
+    const float xs = scale * LOG2E;
+    const float p = FULL ? ex2(fmaf(s, xs, nl)) : ex2(fmaf(s, xs, bias) + nl);
+    dp = p * (dp - delta) * scale;
+    s = p;
   }
 }
 
-// pass 1: dk, dv of one 64-key tile
-template <typename T, bool CLAMPED, int DP, int QT>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params prm) {
-  constexpr int LD = DP + 8;  // shared row stride: ldmatrix without bank conflicts
+// nl and c2 of p_ds2 from a query row's lse (natural units), PAD past N
+__device__ __forceinline__ float2 row_stats(float lse, bool in) {
+  const float nl = in ? -(lse * LOG2E) : -PAD_LSE;
+  return make_float2(nl, SOFTMAX_CLAMP * LOG2E + nl);
+}
+
+// Tile geometry of one instantiation: DK = the reduction dim of S and dP
+// (d zero-padded to a multiple of 16 for the k16 products), DO = the output
+// dim of dK, dV and dQ (d rounded up to 8, the n8 step: d = 24 runs its
+// three output products at 24, not 32), NW warps of 16 rows each. Shared
+// tiles are [rows][DK] with a row stride of DK + 8 elements (ldmatrix reads
+// 8 rows without bank conflicts).
+template <int DK, int NW>
+struct Geo {
+  static constexpr int LD = DK + 8;
+  static constexpr int CHUNKS = DK / 8;  // 16-byte chunks a row
+  static constexpr int THREADS = NW * 32;
+  static constexpr int ROWS = NW * 16;   // keys (pass 1) or queries (pass 2) a block
+};
+
+// cp.async a [ROWS][DK] tile (rows from `row0`; zero past N and past d)
+// into shared memory; each thread copies chunks tid, tid + THREADS, ...
+template <typename T, int DK, int NW, int ROWS>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, long long sn, int row0,
+                                          int N, int d) {
+  using G = Geo<DK, NW>;
+  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += G::THREADS) {
+    const int r = i / G::CHUNKS, c = (i % G::CHUNKS) * 8, row = row0 + r;
+    const bool in = row < N && c < d;
+    cp_async16(dst + r * G::LD + c, in ? src + row * sn + c : src, in);
+  }
+}
+
+// dst = T(f32(src) * scale) over the chunks this thread copied with
+// copy_tile (so it needs only its own copies to have landed); dst may be src
+template <typename T, int DK, int NW, int ROWS>
+__device__ __forceinline__ void scale_tile(T* dst, const T* src, float scale) {
+  using G = Geo<DK, NW>;
+  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += G::THREADS) {
+    const int off = (i / G::CHUNKS) * G::LD + (i % G::CHUNKS) * 8;
+    uint32_t v[4];
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src + off);
+    scale_frag<T>(v, scale);
+    *reinterpret_cast<uint4*>(dst + off) = *reinterpret_cast<uint4*>(v);
+  }
+}
+
+// acc[DO/8][4] += a (16 x 16 from registers) . B, B = 16 rows of `b` (row
+// stride LD, from row `r0`) x DO columns, read with ldmatrix.trans: the
+// product of dV, dK and dQ, at n = DO in steps of 8
+template <typename T, int DK, int DO>
+__device__ __forceinline__ void mma_rows(float (&acc)[DO / 8][4], const uint32_t (&a)[4],
+                                         const T* b, int r0) {
+  constexpr int LD = DK + 8;
+  const int lane = threadIdx.x % 32, lm = lane / 8, lr = lane % 8;
+  // rows r0 + {0-7, 8-15, 0-7, 8-15}, columns 16c + {0-7, 0-7, 8-15, 8-15}
+  const T* p = b + (r0 + lr + (lm % 2) * 8) * LD + (lm / 2) * 8;
+#pragma unroll
+  for (int c = 0; c < DO / 16; ++c) {
+    uint32_t f[4];
+    ldmatrix_x4_trans(f, p + c * 16);
+    Mma<T>::run(acc[2 * c], a, f[0], f[1]);
+    Mma<T>::run(acc[2 * c + 1], a, f[2], f[3]);
+  }
+  if (DO % 16) {  // the last 8 columns (lanes 16-31's addresses are unused)
+    uint32_t f[2];
+    ldmatrix_x2_trans(f, p + (DO / 16) * 16);
+    Mma<T>::run(acc[DO / 8 - 1], a, f[0], f[1]);
+  }
+}
+
+// the score accumulators of 8-column tiles 2kt and 2kt+1, rounded to T:
+// the A operand of a product over those 16 columns
+template <typename T, int NT>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[NT][4], int kt) {
+  a[0] = Mma<T>::pack(x[2 * kt][0], x[2 * kt][1]);
+  a[1] = Mma<T>::pack(x[2 * kt][2], x[2 * kt][3]);
+  a[2] = Mma<T>::pack(x[2 * kt + 1][0], x[2 * kt + 1][1]);
+  a[3] = Mma<T>::pack(x[2 * kt + 1][2], x[2 * kt + 1][3]);
+}
+
+// x[NT][4] (+)= A . B^T over DK: A = this warp's 16 rows of `a`, B = NT * 8
+// rows of `b` (both [rows][DK], row stride LD): S and dP (and their
+// transposes) in m16n8k16 steps
+template <typename T, int DK, int NT>
+__device__ __forceinline__ void mma_scores(float (&x)[NT][4], float (&y)[NT][4], const T* a1,
+                                           const T* b1, const T* a2, const T* b2) {
+  constexpr int LD = DK + 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, lm = lane / 8, lr = lane % 8;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][j] = y[i][j] = 0.0f;
+  }
+  const int aoff = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+#pragma unroll
+  for (int kt = 0; kt < DK / 16; ++kt) {
+    uint32_t fa1[4], fa2[4];
+    ldmatrix_x4(fa1, a1 + aoff + kt * 16);
+    ldmatrix_x4(fa2, a2 + aoff + kt * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      // rows np*16 + {0-7, 0-7, 8-15, 8-15}, columns kt*16 + {0-7, 8-15, ...}
+      const int off = (np * 16 + lr + (lm / 2) * 8) * LD + kt * 16 + (lm % 2) * 8;
+      uint32_t fb1[4], fb2[4];
+      ldmatrix_x4(fb1, b1 + off);
+      ldmatrix_x4(fb2, b2 + off);
+      Mma<T>::run(x[2 * np], fa1, fb1[0], fb1[1]);
+      Mma<T>::run(x[2 * np + 1], fa1, fb1[2], fb1[3]);
+      Mma<T>::run(y[2 * np], fa2, fb2[0], fb2[1]);
+      Mma<T>::run(y[2 * np + 1], fa2, fb2[2], fb2[3]);
+    }
+  }
+}
+
+// p_ds2 over a warp's score tiles of pass 1 (s^T, dp^T: element j of tile
+// nt is key row g + 8*(j/2), query nt*8 + 2t + j%2): the bias by key row
+// from registers, {nl, c2, delta} by query from shared memory
+template <bool CLAMPED, bool FULL, int NT>
+__device__ __forceinline__ void grads_by_key(float (&s)[NT][4], float (&dp)[NT][4],
+                                             const float (&kbias)[2], const float4* sstat,
+                                             float scale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 q = sstat[nt * 8 + 2 * t + c];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        p_ds2<CLAMPED, FULL>(s[nt][2 * r + c], dp[nt][2 * r + c], kbias[r], q.x, q.y, q.z,
+                             scale);
+      }
+    }
+  }
+}
+
+// the same for pass 2 (s, dp: element j of tile nt is query row g +
+// 8*(j/2), key nt*8 + 2t + j%2): {nl, c2} and delta by query row from
+// registers, the bias by key from shared memory (read only if !FULL)
+template <bool CLAMPED, bool FULL, int NT>
+__device__ __forceinline__ void grads_by_query(float (&s)[NT][4], float (&dp)[NT][4],
+                                               const float* sb, const float2 (&stat)[2],
+                                               const float (&delta)[2], float scale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float bv = FULL ? 0.0f : sb[nt * 8 + 2 * t + (j & 1)];
+      p_ds2<CLAMPED, FULL>(s[nt][j], dp[nt][j], bv, stat[j >> 1].x, stat[j >> 1].y,
+                           delta[j >> 1], scale);
+    }
+  }
+}
+
+constexpr int NSTAGE = 3;  // tiles in a cp.async ring: two in flight, one read
+
+// pass 1: dk, dv of ROWS keys. QT = queries a streamed tile.
+template <typename T, bool CLAMPED, int DK, int DO, int NW, int QT>
+__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+attn_bwd_dkdv_kernel(const Params prm) {
+  using G = Geo<DK, NW>;
+  constexpr int LD = G::LD, ROWS = G::ROWS, THREADS = G::THREADS;
+  constexpr int SLOT = 2 * QT * LD;  // a ring slot: q | dO
   extern __shared__ __align__(128) unsigned char smem[];
   T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + BT * LD;
-  T* sq = sv + BT * LD;
-  T* so = sq + QT * LD;  // dO
-  float* slse = reinterpret_cast<float*>(so + QT * LD);
-  float* sdelta = slse + QT;
+  T* sv = sk + ROWS * LD;
+  T* ring = sv + ROWS * LD;
+  // [NSTAGE][lse | delta as copied, then {nl, c2, delta, 0} by query]
+  float* sstat = reinterpret_cast<float*>(ring + NSTAGE * SLOT);
 
   const int N = prm.N, d = prm.d;
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int lm = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row
 
   const T* qg = static_cast<const T*>(prm.q) + b * prm.q_sb + h * prm.q_sh;
   const T* kg = static_cast<const T*>(prm.k) + b * prm.k_sb + h * prm.k_sh;
@@ -139,104 +326,88 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params pr
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
   const long long bh = static_cast<long long>(b) * prm.H + h;
 
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
+  for (int i = 0; i < DO / 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.0f;
   }
 
-  // a tile whose keys are all masked gets dk = dv = 0 and no work
-  const int valid = tid < BT && key_bias(bias_g, k0 + tid, N) > -1.0f;
-  if (__syncthreads_or(valid)) {
-    load_tile<T, DP, BT>(sk, kg, prm.k_sn, k0, N, d, tid);
-    load_tile<T, DP, BT>(sv, vg, prm.v_sn, k0, N, d, tid);
-    const float kbias[2] = {key_bias(bias_g, k0 + warp * 16 + g, N),
-                            key_bias(bias_g, k0 + warp * 16 + g + 8, N)};
-    const T* skw = sk + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // A: this warp's keys
-    const T* svw = sv + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  // a block whose keys are all masked gets dk = dv = 0 and no work; a
+  // "full" block (every key below N with bias 0) adds no bias
+  const float kb = tid < ROWS ? key_bias(bias_g, k0 + tid, N) : 0.0f;
+  const bool any = __syncthreads_or(tid < ROWS && kb > -1.0f);
+  const bool full = !__syncthreads_or(kb != 0.0f);
+  if (any) {
+    copy_tile<T, DK, NW, ROWS>(sk, kg, prm.k_sn, k0, N, d);
+    copy_tile<T, DK, NW, ROWS>(sv, vg, prm.v_sn, k0, N, d);
+    cp_async_commit();
+    const int nq = (N + QT - 1) / QT;
+    // copy group of query tile i into slot i % NSTAGE (empty past the last
+    // tile, so that every thread commits the same number of groups)
+    auto load_q = [&](int i) {
+      if (i < nq) {
+        T* sq = ring + (i % NSTAGE) * SLOT;
+        float* st = sstat + (i % NSTAGE) * 6 * QT;
+        copy_tile<T, DK, NW, QT>(sq, qg, prm.q_sn, i * QT, N, d);
+        copy_tile<T, DK, NW, QT>(sq + QT * LD, og, prm.o_sn, i * QT, N, d);
+        if (tid < QT) {
+          const int row = i * QT + tid;
+          const bool in = row < N;
+          cp_async4(st + tid, in ? prm.lse + bh * N + row : prm.lse, in);
+          cp_async4(st + QT + tid, in ? prm.delta + bh * N + row : prm.delta, in);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < NSTAGE - 1; ++i) load_q(i);
+    // this thread's two keys' bias (natural units for K2, times log2e for K4)
+    float kbias[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float bv = key_bias(bias_g, k0 + warp * 16 + g + 8 * r, N);
+      kbias[r] = CLAMPED ? bv : bv * LOG2E;
+    }
 
-    for (int q0 = 0; q0 < N; q0 += QT) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, DP, QT>(sq, qg, prm.q_sn, q0, N, d, tid);
-      load_tile<T, DP, QT>(so, og, prm.o_sn, q0, N, d, tid);
+    for (int i = 0; i < nq; ++i) {
+      // tile i has landed for this thread; q is scaled (K2) and lse turned
+      // into log2 units by the threads that copied them; after the barrier,
+      // tile i is visible to all, and every warp is done with tile i - 1,
+      // whose slot the copy below refills
+      cp_async_wait<NSTAGE - 2>();
+      T* sq = ring + (i % NSTAGE) * SLOT;
+      T* so = sq + QT * LD;
+      float* st = sstat + (i % NSTAGE) * 6 * QT;
+      float4* qstat = reinterpret_cast<float4*>(st + 2 * QT);
+      if (CLAMPED) scale_tile<T, DK, NW, QT>(sq, sq, prm.scale);
       if (tid < QT) {
-        const int row = q0 + tid;
-        slse[tid] = row < N ? prm.lse[bh * N + row] : PAD_LSE;
-        sdelta[tid] = row < N ? prm.delta[bh * N + row] : 0.0f;
+        const float2 r = row_stats(st[tid], i * QT + tid < N);
+        qstat[tid] = make_float4(r.x, r.y, st[QT + tid], 0.0f);
       }
-      cp_async_wait_all();
       __syncthreads();
+      load_q(i + NSTAGE - 1);
 
-      // s^T = k.q^T and dp^T = v.dO^T: this warp's 16 keys x QT queries
-      float st[QT / 8][4], dpt[QT / 8][4];
-#pragma unroll
-      for (int i = 0; i < QT / 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.0f;
+      // s^T = k.qs^T and dp^T = v.dO^T: this warp's 16 keys x QT queries
+      float sc[QT / 8][4], dpt[QT / 8][4];
+      mma_scores<T, DK, QT / 8>(sc, dpt, sk, sq, sv, so);
+      // p^T and ds^T in place
+      if (full) {
+        grads_by_key<CLAMPED, true>(sc, dpt, kbias, qstat, prm.scale);
+      } else {
+        grads_by_key<CLAMPED, false>(sc, dpt, kbias, qstat, prm.scale);
       }
-#pragma unroll
-      for (int kt = 0; kt < DP / 16; ++kt) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, skw + kt * 16);
-        ldmatrix_x4(va, svw + kt * 16);
-#pragma unroll
-        for (int np = 0; np < QT / 16; ++np) {
-          // queries np*16 + {0-7, 0-7, 8-15, 8-15}, dims kt*16 + {0-7, 8-15, ...}
-          const int off = (np * 16 + lr + (lm / 2) * 8) * LD + kt * 16 + (lm % 2) * 8;
-          uint32_t qb[4], ob[4];
-          ldmatrix_x4(qb, sq + off);
-          if (CLAMPED) scale_frag<T>(qb, prm.scale);
-          ldmatrix_x4(ob, so + off);
-          Mma<T>::run(st[2 * np], ka, qb[0], qb[1]);
-          Mma<T>::run(st[2 * np + 1], ka, qb[2], qb[3]);
-          Mma<T>::run(dpt[2 * np], va, ob[0], ob[1]);
-          Mma<T>::run(dpt[2 * np + 1], va, ob[2], ob[3]);
-        }
-      }
-      // p^T and ds^T in place: element j of tile nt is key row g + 8*(j/2),
-      // query nt*8 + 2t + j%2
-#pragma unroll
-      for (int nt = 0; nt < QT / 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = nt * 8 + 2 * t + (j & 1);
-          p_ds<CLAMPED>(st[nt][j], dpt[nt][j], kbias[j >> 1], slse[col], sdelta[col],
-                        prm.scale);
-        }
-      }
-      // dv += p^T.dO and dk += ds^T.q(s): the accumulators of query tiles 2kt
-      // and 2kt+1, rounded to T, are the A operand; ldmatrix.trans gives the
-      // B operands of dO and q
+      // dv += p^T.dO and dk += ds^T.qs (K4: ds^T.q) over the QT queries
 #pragma unroll
       for (int kt = 0; kt < QT / 16; ++kt) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(st[2 * kt][0], st[2 * kt][1]),
-            Mma<T>::pack(st[2 * kt][2], st[2 * kt][3]),
-            Mma<T>::pack(st[2 * kt + 1][0], st[2 * kt + 1][1]),
-            Mma<T>::pack(st[2 * kt + 1][2], st[2 * kt + 1][3]),
-        };
-        const uint32_t sa[4] = {
-            Mma<T>::pack(dpt[2 * kt][0], dpt[2 * kt][1]),
-            Mma<T>::pack(dpt[2 * kt][2], dpt[2 * kt][3]),
-            Mma<T>::pack(dpt[2 * kt + 1][0], dpt[2 * kt + 1][1]),
-            Mma<T>::pack(dpt[2 * kt + 1][2], dpt[2 * kt + 1][3]),
-        };
-#pragma unroll
-        for (int dp = 0; dp < DP / 16; ++dp) {
-          // queries kt*16 + {0-7, 8-15, 0-7, 8-15}, dims dp*16 + {0-7, 0-7, 8-15, 8-15}
-          const int off = (kt * 16 + lr + (lm % 2) * 8) * LD + dp * 16 + (lm / 2) * 8;
-          uint32_t ob[4], qb[4];
-          ldmatrix_x4_trans(ob, so + off);
-          ldmatrix_x4_trans(qb, sq + off);
-          if (CLAMPED) scale_frag<T>(qb, prm.scale);
-          Mma<T>::run(dv[2 * dp], pa, ob[0], ob[1]);
-          Mma<T>::run(dv[2 * dp + 1], pa, ob[2], ob[3]);
-          Mma<T>::run(dk[2 * dp], sa, qb[0], qb[1]);
-          Mma<T>::run(dk[2 * dp + 1], sa, qb[2], qb[3]);
-        }
+        uint32_t pa[4], sa[4];
+        pack_a<T>(pa, sc, kt);
+        pack_a<T>(sa, dpt, kt);
+        mma_rows<T, DK, DO>(dv, pa, so, kt * 16);
+        mma_rows<T, DK, DO>(dk, sa, sq, kt * 16);
       }
     }
+    cp_async_wait_all();  // no copy may still target shared memory at exit
   }
 
   T* dkg = static_cast<T*>(prm.dk) + b * prm.dk_sb + h * prm.dk_sh;
@@ -246,7 +417,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params pr
     const int key = k0 + warp * 16 + g + 8 * r;
     if (key >= N) continue;
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
+    for (int dt = 0; dt < DO / 8; ++dt) {
       const int c = dt * 8 + 2 * t;
       if (c < d) {
         *reinterpret_cast<uint32_t*>(dkg + key * prm.dk_sn + c) =
@@ -258,21 +429,35 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params pr
   }
 }
 
-// pass 2: dq of one 64-query tile
-template <typename T, bool CLAMPED, int DP>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(const Params prm) {
-  constexpr int LD = DP + 8;
+// ring slots of pass 2: 3, or 2 where 3 would leave room for only one
+// block a SM (a slot holds K, V and, for K2, ks: KEY_TILE rows each)
+template <bool CLAMPED, int DK, int NW>
+__host__ __device__ constexpr int dq_stages() {
+  constexpr int tiles = CLAMPED ? 3 : 2;
+  constexpr int bytes = 2 * (2 * NW * 16 + NSTAGE * tiles * KEY_TILE) * (DK + 8);
+  return 2 * bytes <= 200 * 1024 ? NSTAGE : 2;
+}
+
+// pass 2: dq of ROWS queries, over the block's listed key tiles
+template <typename T, bool CLAMPED, int DK, int DO, int NW>
+__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+attn_bwd_dq_kernel(const Params prm) {
+  using G = Geo<DK, NW>;
+  constexpr int LD = G::LD, ROWS = G::ROWS, THREADS = G::THREADS, KT = KEY_TILE;
+  constexpr int STAGES = dq_stages<CLAMPED, DK, NW>();
+  constexpr int TILES = CLAMPED ? 3 : 2;  // K, V and (K2) ks = T(k * scale)
+  constexpr int SLOT = TILES * KT * LD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
-  T* so = sq + BT * LD;  // dO
-  T* sk = so + BT * LD;
-  T* sv = sk + KT * LD;
+  T* so = sq + ROWS * LD;  // dO
+  T* ring = so + ROWS * LD;
+  float* sbias = reinterpret_cast<float*>(ring + STAGES * SLOT);  // [STAGES][KT]
+  int* list = reinterpret_cast<int*>(sbias + STAGES * KT);
 
   const int N = prm.N, d = prm.d;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int lm = lane / 8, lr = lane % 8;
 
   const T* qg = static_cast<const T*>(prm.q) + b * prm.q_sb + h * prm.q_sh;
   const T* kg = static_cast<const T*>(prm.k) + b * prm.k_sb + h * prm.k_sh;
@@ -281,85 +466,80 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(const Params prm)
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
   const long long bh = static_cast<long long>(b) * prm.H + h;
 
-  load_tile<T, DP, BT>(sq, qg, prm.q_sn, q0, N, d, tid);
-  load_tile<T, DP, BT>(so, og, prm.o_sn, q0, N, d, tid);
-  cp_async_wait_all();  // visible to all after the first barrier below
-  float lse[2], delta[2];
+  copy_tile<T, DK, NW, ROWS>(sq, qg, prm.q_sn, q0, N, d);
+  copy_tile<T, DK, NW, ROWS>(so, og, prm.o_sn, q0, N, d);
+  cp_async_commit();
+  const int ntiles = list_key_tiles<THREADS>(bias_g, N, list);
+
+  // copy group of listed key tile i into slot i % STAGES (empty past the
+  // list); a partial tile's bias comes along
+  auto load_kv = [&](int i) {
+    if (i < ntiles) {
+      const int e = list[i], k0 = (e >> 1) * KT, slot = i % STAGES;
+      T* sk = ring + slot * SLOT;
+      copy_tile<T, DK, NW, KT>(sk, kg, prm.k_sn, k0, N, d);
+      copy_tile<T, DK, NW, KT>(sk + KT * LD, vg, prm.v_sn, k0, N, d);
+      if (bias_g && !(e & 1) && tid < KT) {
+        const bool in = k0 + tid < N;
+        cp_async4(sbias + slot * KT + tid, in ? bias_g + k0 + tid : bias_g, in);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load_kv(i);
+
+  float2 stat[2];
+  float delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
-    lse[r] = row < N ? prm.lse[bh * N + row] : PAD_LSE;
+    stat[r] = row_stats(row < N ? prm.lse[bh * N + row] : 0.0f, row < N);
     delta[r] = row < N ? prm.delta[bh * N + row] : 0.0f;
   }
-  const T* sqw = sq + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // A: this warp's queries
-  const T* sow = so + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  cp_async_wait<STAGES - 1>();  // the q and dO tiles (this thread's copies)
+  if (CLAMPED) scale_tile<T, DK, NW, ROWS>(sq, sq, prm.scale);  // qs, once
 
-  float dq[DP / 8][4];
+  float dq[DO / 8][4];
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
+  for (int i = 0; i < DO / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
 
-  for (int k0 = 0; k0 < N; k0 += KT) {
-    // skip an all-masked key tile; the barrier also keeps the previous
-    // tile's readers ahead of the copy below
-    const int valid = tid < KT && key_bias(bias_g, k0 + tid, N) > -1.0f;
-    if (!__syncthreads_or(valid)) continue;
-    load_tile<T, DP, KT>(sk, kg, prm.k_sn, k0, N, d, tid);
-    load_tile<T, DP, KT>(sv, vg, prm.v_sn, k0, N, d, tid);
-    cp_async_wait_all();
+  for (int i = 0; i < ntiles; ++i) {
+    // tile i has landed for this thread; it makes its part of ks (K2) and
+    // of a partial tile's bias; the barrier shows all of it to every warp
+    // and frees slot i - 1 for the copy below
+    cp_async_wait<STAGES - 2>();
+    const int e = list[i], k0 = (e >> 1) * KT, slot = i % STAGES;
+    T* sk = ring + slot * SLOT;
+    T* sv = sk + KT * LD;
+    float* sb = sbias + slot * KT;
+    if (CLAMPED) scale_tile<T, DK, NW, KT>(sk + 2 * KT * LD, sk, prm.scale);
+    if (!(e & 1) && tid < KT) {
+      // keys past N, or all keys without a bias array: set here, not copied
+      const float bv = k0 + tid >= N ? NEG_BIAS : bias_g ? sb[tid] : 0.0f;
+      sb[tid] = CLAMPED ? bv : bv * LOG2E;
+    }
     __syncthreads();
+    load_kv(i + STAGES - 1);
 
+    // s = qs.k^T and dp = dO.v^T: this warp's 16 queries x 64 keys
     float s[KT / 8][4], dp[KT / 8][4];
-#pragma unroll
-    for (int i = 0; i < KT / 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    mma_scores<T, DK, KT / 8>(s, dp, sq, sk, so, sv);
+    if (e & 1) {
+      grads_by_query<CLAMPED, true>(s, dp, sb, stat, delta, prm.scale);
+    } else {
+      grads_by_query<CLAMPED, false>(s, dp, sb, stat, delta, prm.scale);
     }
-#pragma unroll
-    for (int kt = 0; kt < DP / 16; ++kt) {
-      uint32_t qa[4], oa[4];
-      ldmatrix_x4(qa, sqw + kt * 16);
-      if (CLAMPED) scale_frag<T>(qa, prm.scale);
-      ldmatrix_x4(oa, sow + kt * 16);
-#pragma unroll
-      for (int np = 0; np < KT / 16; ++np) {
-        const int off = (np * 16 + lr + (lm / 2) * 8) * LD + kt * 16 + (lm % 2) * 8;
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4(kb, sk + off);
-        ldmatrix_x4(vb, sv + off);
-        Mma<T>::run(s[2 * np], qa, kb[0], kb[1]);
-        Mma<T>::run(s[2 * np + 1], qa, kb[2], kb[3]);
-        Mma<T>::run(dp[2 * np], oa, vb[0], vb[1]);
-        Mma<T>::run(dp[2 * np + 1], oa, vb[2], vb[3]);
-      }
-    }
-    // element j of tile nt: query row g + 8*(j/2), key k0 + nt*8 + 2t + j%2
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bv = key_bias(bias_g, k0 + nt * 8 + 2 * t + (j & 1), N);
-        p_ds<CLAMPED>(s[nt][j], dp[nt][j], bv, lse[j >> 1], delta[j >> 1], prm.scale);
-      }
-    }
-    // dq += ds.k(s)
+    // dq += ds.ks (K4: ds.k)
+    const T* kb = CLAMPED ? sk + 2 * KT * LD : sk;
 #pragma unroll
     for (int kt = 0; kt < KT / 16; ++kt) {
-      const uint32_t sa[4] = {
-          Mma<T>::pack(dp[2 * kt][0], dp[2 * kt][1]),
-          Mma<T>::pack(dp[2 * kt][2], dp[2 * kt][3]),
-          Mma<T>::pack(dp[2 * kt + 1][0], dp[2 * kt + 1][1]),
-          Mma<T>::pack(dp[2 * kt + 1][2], dp[2 * kt + 1][3]),
-      };
-#pragma unroll
-      for (int dt = 0; dt < DP / 16; ++dt) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, sk + (kt * 16 + lr + (lm % 2) * 8) * LD + dt * 16 + (lm / 2) * 8);
-        if (CLAMPED) scale_frag<T>(kb, prm.scale);
-        Mma<T>::run(dq[2 * dt], sa, kb[0], kb[1]);
-        Mma<T>::run(dq[2 * dt + 1], sa, kb[2], kb[3]);
-      }
+      uint32_t sa[4];
+      pack_a<T>(sa, dp, kt);
+      mma_rows<T, DK, DO>(dq, sa, kb, kt * 16);
     }
   }
+  cp_async_wait_all();
 
   T* dqg = static_cast<T*>(prm.dq) + b * prm.dq_sb + h * prm.dq_sh;
 #pragma unroll
@@ -367,7 +547,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(const Params prm)
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= N) continue;
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
+    for (int dt = 0; dt < DO / 8; ++dt) {
       const int c = dt * 8 + 2 * t;
       if (c < d) {
         *reinterpret_cast<uint32_t*>(dqg + row * prm.dq_sn + c) =
@@ -545,23 +725,54 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_f32_kernel(const Params 
 
 dim3 grid_of(const Params& p, int rows) { return dim3((p.N + rows - 1) / rows, p.H, p.B); }
 
-template <typename T, bool CLAMPED, int DP>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr int QT = DP > 64 ? 32 : 64;
-  const size_t smem1 = sizeof(T) * (2 * BT + 2 * QT) * (DP + 8) + sizeof(float) * 2 * QT;
-  cudaError_t err = launch_kernel(attn_bwd_dkdv_kernel<T, CLAMPED, DP, QT>, grid_of(p, BT),
-                                  smem1, p, stream);
+// the card's SM count (device 0 of the process's current device, read once)
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <typename T, bool CLAMPED, int DK, int DO, int NW>
+cudaError_t launch_passes(const Params& p, cudaStream_t stream) {
+  using G = Geo<DK, NW>;
+  constexpr int QT = DK <= 32 || (DK <= 64 && NW == 4) ? 64 : 32;
+  const size_t smem1 = sizeof(T) * (2 * G::ROWS + NSTAGE * 2 * QT) * G::LD +
+                       sizeof(float) * NSTAGE * 6 * QT;
+  cudaError_t err = launch_kernel(attn_bwd_dkdv_kernel<T, CLAMPED, DK, DO, NW, QT>,
+                                  grid_of(p, G::ROWS), smem1, p, stream, G::THREADS);
   if (err != cudaSuccess) return err;
-  const size_t smem2 = sizeof(T) * (2 * BT + 2 * KT) * (DP + 8);
-  return launch_kernel(attn_bwd_dq_kernel<T, CLAMPED, DP>, grid_of(p, BT), smem2, p, stream);
+  constexpr int STAGES = dq_stages<CLAMPED, DK, NW>();
+  const int ntiles = (p.N + KEY_TILE - 1) / KEY_TILE;
+  const size_t smem2 = sizeof(T) * (2 * G::ROWS + STAGES * (CLAMPED ? 3 : 2) * KEY_TILE) * G::LD +
+                       sizeof(float) * STAGES * KEY_TILE + sizeof(int) * ntiles;
+  return launch_kernel(attn_bwd_dq_kernel<T, CLAMPED, DK, DO, NW>, grid_of(p, G::ROWS), smem2,
+                       p, stream, G::THREADS);
+}
+
+// 128 rows a block (8 warps: each streamed tile feeds twice the rows) at
+// DK <= 64, where registers allow, when that grid still has 4 blocks a SM;
+// else 64 rows, so that a small grid spreads over more SMs
+template <typename T, bool CLAMPED, int DK, int DO>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  if constexpr (DK <= 64) {
+    const long long wide = static_cast<long long>(p.B) * p.H * ((p.N + 127) / 128);
+    if (wide >= 4LL * sm_count()) return launch_passes<T, CLAMPED, DK, DO, 8>(p, stream);
+  }
+  return launch_passes<T, CLAMPED, DK, DO, 4>(p, stream);
 }
 
 template <typename T, bool CLAMPED>
 cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch_mma<T, CLAMPED, 32>(p, stream);
-  if (p.d <= 64) return launch_mma<T, CLAMPED, 64>(p, stream);
-  if (p.d <= 96) return launch_mma<T, CLAMPED, 96>(p, stream);
-  return launch_mma<T, CLAMPED, 128>(p, stream);
+  if (p.d <= 24) return launch_mma<T, CLAMPED, 32, 24>(p, stream);
+  if (p.d <= 32) return launch_mma<T, CLAMPED, 32, 32>(p, stream);
+  if (p.d <= 64) return launch_mma<T, CLAMPED, 64, 64>(p, stream);
+  if (p.d <= 80) return launch_mma<T, CLAMPED, 80, 80>(p, stream);
+  if (p.d <= 96) return launch_mma<T, CLAMPED, 96, 96>(p, stream);
+  return launch_mma<T, CLAMPED, 128, 128>(p, stream);
 }
 
 template <bool CLAMPED>

@@ -1,7 +1,7 @@
 // Device helpers shared by the attention kernels (attention_fwd.cu,
 // attention_bwd.cu): constants of the TPU kernels' contract, the key bias,
-// quad reductions, ex2, cp.async, ldmatrix and the mma.sync m16n8k16
-// wrappers.
+// the key-tile list, quad reductions, ex2, cp.async, ldmatrix and the
+// mma.sync m16n8k16 wrappers.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4*g + t): the f32 accumulator
 // c[0..1] is row g, columns 2t and 2t+1; c[2..3] is row g + 8, same
@@ -24,11 +24,57 @@ constexpr float NEG_BIAS = -1e30f;
 constexpr float SOFTMAX_CLAMP = 80.0f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int KEY_TILE = 64;  // keys of a listed key tile, and the skip rule's granularity
 
 // bias of one key; keys past N are excluded like masked keys
 __device__ __forceinline__ float key_bias(const float* bias_g, int key, int N) {
   if (key >= N) return NEG_BIAS;
   return bias_g ? bias_g[key] : 0.0f;
+}
+
+// A block's key tiles of KEY_TILE keys, compacted into `list` (shared, one
+// int per tile of N): entry = tile index * 2 + 1 if every key of the tile is
+// below N with bias exactly 0 ("full": no bias add), + 0 else. Tiles whose
+// keys are all masked (bias <= -1) or past N are left out. Returns the
+// count; every thread of the block (THREADS) must call it.
+template <int THREADS>
+__device__ int list_key_tiles(const float* bias_g, int N, int* list) {
+  constexpr int BK = KEY_TILE, WARPS = THREADS / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ntiles = (N + BK - 1) / BK;
+  __shared__ int count;
+  if (bias_g == nullptr) {
+    for (int j = tid; j < ntiles; j += THREADS) list[j] = 2 * j + ((j + 1) * BK <= N);
+    __syncthreads();
+    return ntiles;
+  }
+  for (int j = warp; j < ntiles; j += WARPS) {  // flags: 0 skip, 1 partial, 3 full
+    int valid = 0, zero = 1;
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int key = j * BK + e * 32 + lane;
+      const float bv = key < N ? bias_g[key] : NEG_BIAS;
+      valid |= bv > -1.0f;
+      zero &= bv == 0.0f;
+    }
+    const bool any = __any_sync(0xffffffffu, valid), all = __all_sync(0xffffffffu, zero);
+    if (lane == 0) list[j] = any ? (all ? 3 : 1) : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact in place: an entry moves only to a lower slot
+    int n = 0;
+    for (int j0 = 0; j0 < ntiles; j0 += 32) {
+      const int j = j0 + lane;
+      const int f = j < ntiles ? list[j] : 0;
+      const unsigned keep = __ballot_sync(0xffffffffu, f != 0);
+      __syncwarp();
+      if (f) list[n + __popc(keep & ((1u << lane) - 1))] = 2 * j + (f >> 1);
+      n += __popc(keep);
+    }
+    if (lane == 0) count = n;
+  }
+  __syncthreads();
+  return count;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -84,6 +130,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
                : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {

@@ -66,7 +66,7 @@
 
 namespace {
 
-constexpr int BK = 64;  // keys per tile, and the granularity of the skip rule
+constexpr int BK = KEY_TILE;  // keys per tile, and the granularity of the skip rule
 
 struct Params {
   const void* q;
@@ -97,78 +97,6 @@ constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
 // thread; on an H100 the third block takes the d = 24 calls from 0.58 to
 // 0.51 ms), 2 at DP = 64 (3 would spill), 1 at DP = 128
 constexpr int fwd_blocks_per_sm(int dp) { return dp <= 32 ? 3 : dp <= 64 ? 2 : 1; }
-
-// the block's key tiles, compacted: entry = tile index * 2 + 1 if every key
-// of the tile is below N with bias exactly 0 ("full": no bias add), + 0 else.
-// Tiles whose keys are all masked (bias <= -1) or past N are left out.
-__device__ int list_key_tiles(const float* bias_g, int N, int* list) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ntiles = (N + BK - 1) / BK;
-  __shared__ int count;
-  if (bias_g == nullptr) {
-    for (int j = tid; j < ntiles; j += FWD_THREADS) list[j] = 2 * j + ((j + 1) * BK <= N);
-    __syncthreads();
-    return ntiles;
-  }
-  for (int j = warp; j < ntiles; j += FWD_WARPS) {  // flags: 0 skip, 1 partial, 3 full
-    int valid = 0, zero = 1;
-#pragma unroll
-    for (int e = 0; e < BK / 32; ++e) {
-      const int key = j * BK + e * 32 + lane;
-      const float bv = key < N ? bias_g[key] : NEG_BIAS;
-      valid |= bv > -1.0f;
-      zero &= bv == 0.0f;
-    }
-    const bool any = __any_sync(0xffffffffu, valid), all = __all_sync(0xffffffffu, zero);
-    if (lane == 0) list[j] = any ? (all ? 3 : 1) : 0;
-  }
-  __syncthreads();
-  if (warp == 0) {  // compact in place: an entry moves only to a lower slot
-    int n = 0;
-    for (int j0 = 0; j0 < ntiles; j0 += 32) {
-      const int j = j0 + lane;
-      const int f = j < ntiles ? list[j] : 0;
-      const unsigned keep = __ballot_sync(0xffffffffu, f != 0);
-      __syncwarp();
-      if (f) list[n + __popc(keep & ((1u << lane) - 1))] = 2 * j + (f >> 1);
-      n += __popc(keep);
-    }
-    if (lane == 0) count = n;
-  }
-  __syncthreads();
-  return count;
-}
-
-// Shared-memory layout of a [rows][DP] tile, as wgmma reads it: column
-// blocks of ROWB bytes a row (64 elements, or 32 when DP = 32), each block
-// [rows][ROWB] with its 16-byte chunks swizzled (128-byte rows: chunk c of
-// row r sits at c ^ (r % 8); 64-byte rows: at c ^ ((r / 2) % 4)). A tile
-// starts on a 1024-byte boundary.
-template <int DP>
-struct TileLayout {
-  static constexpr int ROWB = DP == 32 ? 64 : 128;
-  static constexpr int EPR = ROWB / 2;  // elements a row of a column block
-  static constexpr int CPB = ROWB / 16;  // 16-byte chunks a row of a column block
-  static constexpr int SWIZZLE = ROWB == 128 ? SWIZZLE_128B : SWIZZLE_64B;
-  // byte offset of 16-byte chunk c (elements 8c..8c+7) of row r
-  static __device__ __forceinline__ int offset(int r, int c, int rows) {
-    const int sw = ROWB == 128 ? (r & 7) : ((r >> 1) & 3);
-    return (c / CPB) * rows * ROWB + r * ROWB + (((c % CPB) ^ sw) << 4);
-  }
-  // descriptor of a K-major operand (Q, K): rows of [rows][DP] from
-  // `first_row`, elements 16kk..16kk+15 along DP (8-row groups 8 * ROWB apart)
-  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int first_row,
-                                                     int kk) {
-    const int e = 16 * kk;
-    return make_desc(base + (e / EPR) * rows * ROWB + first_row * ROWB + (e % EPR) * 2, 16,
-                     8 * ROWB, SWIZZLE);
-  }
-  // descriptor of V (64 keys x DP) as the MN-major B operand: keys
-  // 16kt..16kt+15 (8-key groups 8 * ROWB apart, column blocks 64 * ROWB)
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kt) {
-    return make_desc(base + 16 * kt * ROWB, 64 * ROWB, 8 * ROWB, SWIZZLE);
-  }
-};
 
 // CLAMPED = K1 numerics (scale folded into q, no-max clamped softmax);
 // otherwise K3 numerics (scale on s, running max). DP = d padded to 32, 64
@@ -214,7 +142,7 @@ attn_fwd_wgmma_kernel(const Params prm) {
     cp_async16(sq + L::offset(r, c, FWD_BQ), in ? qg + row * prm.q_sn + 8 * c : qg, in);
   }
   cp_async_commit();
-  const int ntiles = list_key_tiles(bias_g, N, list);
+  const int ntiles = list_key_tiles<FWD_THREADS>(bias_g, N, list);
 
   // copy group of one listed key tile into ring slot i % NSTAGE (empty past
   // the list, so that every thread commits the same number of groups); a

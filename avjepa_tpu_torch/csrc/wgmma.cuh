@@ -1,6 +1,7 @@
-// wgmma (sm_90a) wrappers for the forward attention kernel: shared-memory
-// matrix descriptors, the fence / commit / wait instructions, and the two
-// products it issues, for bf16 and f16 with f32 accumulators:
+// wgmma (sm_90a) wrappers for the attention kernels: shared-memory matrix
+// descriptors and the tile layout they read (TileLayout), the fence /
+// commit / wait instructions, and the two products, for bf16 and f16 with
+// f32 accumulators:
 //   WgmmaSS<T>::n64:  d[32] (+)= A (64 x 16, shared) . B (64 x 16, shared,
 //                     K-major)^T                     S = Q . K^T
 //   WgmmaRS<T, N>::run: d[N/2] += A (64 x 16, registers) . B (16 x N, shared,
@@ -70,6 +71,37 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+// Shared-memory layout of a [rows][DP] tile, as wgmma reads it: column
+// blocks of ROWB bytes a row (64 elements, or 32 when DP = 32), each block
+// [rows][ROWB] with its 16-byte chunks swizzled (128-byte rows: chunk c of
+// row r sits at c ^ (r % 8); 64-byte rows: at c ^ ((r / 2) % 4)). A tile
+// starts on a 1024-byte boundary.
+template <int DP>
+struct TileLayout {
+  static constexpr int ROWB = DP == 32 ? 64 : 128;
+  static constexpr int EPR = ROWB / 2;  // elements a row of a column block
+  static constexpr int CPB = ROWB / 16;  // 16-byte chunks a row of a column block
+  static constexpr int SWIZZLE = ROWB == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  // byte offset of 16-byte chunk c (elements 8c..8c+7) of row r
+  static __device__ __forceinline__ int offset(int r, int c, int rows) {
+    const int sw = ROWB == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / CPB) * rows * ROWB + r * ROWB + (((c % CPB) ^ sw) << 4);
+  }
+  // descriptor of a K-major operand (Q, K): rows of [rows][DP] from
+  // `first_row`, elements 16kk..16kk+15 along DP (8-row groups 8 * ROWB apart)
+  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int first_row,
+                                                     int kk) {
+    const int e = 16 * kk;
+    return make_desc(base + (e / EPR) * rows * ROWB + first_row * ROWB + (e % EPR) * 2, 16,
+                     8 * ROWB, SWIZZLE);
+  }
+  // descriptor of V (64 keys x DP) as the MN-major B operand: keys
+  // 16kt..16kt+15 (8-key groups 8 * ROWB apart, column blocks 64 * ROWB)
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kt) {
+    return make_desc(base + 16 * kt * ROWB, 64 * ROWB, 8 * ROWB, SWIZZLE);
+  }
+};
 
 template <typename T> struct WgmmaSS;
 template <typename T, int N> struct WgmmaRS;

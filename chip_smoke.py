@@ -156,9 +156,10 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def print_fwd_resources() -> None:
-    """Registers, shared memory and spills of each forward kernel, from the
-    build log (nvcc -Xptxas -v), demangled where cu++filt is found."""
+def print_resources(prefix: str = "attn_fwd") -> None:
+    """Registers, shared memory and spills of each kernel whose name holds
+    ``prefix`` (the forward attention kernels by default), from the build
+    log (nvcc -Xptxas -v), demangled where cu++filt is found."""
     from pathlib import Path
 
     from avjepa_tpu_torch.ops._build import find_nvcc, load_library
@@ -171,7 +172,7 @@ def print_fwd_resources() -> None:
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "attn_fwd" in name and ("spill" in line or "Used" in line):
+        elif name and prefix in name and ("spill" in line or "Used" in line):
             lines.append((name, line.split(":", 1)[-1].strip()))
     demangle = Path(find_nvcc()).with_name("cu++filt")
     names = sorted({n for n, _ in lines})
@@ -195,7 +196,7 @@ def check_kernels() -> dict:
     from avjepa_tpu_torch.ops import flash_attention as fa
 
     print("forward kernels' resources (ptxas):")
-    print_fwd_resources()
+    print_resources()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape, dtype):
@@ -270,13 +271,19 @@ def check_kernels() -> dict:
 
 
 def _key_mask(gen, b: int, n: int, kind):
-    """None, a sentinel tail (the compacted context: the first 7/8 of the
-    keys valid), or random keys (p = 0.8) with a sentinel tail and batch row
-    0 fully masked (the compacted predictor's union, and an empty row)."""
+    """None; a sentinel tail (the compacted context: the first 7/8 of the
+    keys valid); a prefix (the pretrain step's compacted masks: gather_idx
+    sorts each row's kept tokens first, so each row's valid keys are a
+    prefix, here of a random length in [n/2, n)); or random keys (p = 0.8)
+    with a sentinel tail and batch row 0 fully masked (the uncompacted
+    union, and an empty row)."""
     import torch
 
     if kind is None:
         return None
+    if kind == "prefix":
+        lengths = torch.randint(n // 2, n, (b, 1), generator=gen, device="cuda")
+        return torch.arange(n, device="cuda")[None, :] < lengths
     mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
     mask[:, n - n // 8:] = False
     if kind == "random":
@@ -286,13 +293,18 @@ def _key_mask(gen, b: int, n: int, kind):
 
 
 def check_bwd_kernels() -> dict:
-    """Each backward kernel against its plain version at the training
-    slice's shapes, bf16 and f32; returns the bf16 max abs error at the main
-    shape of each."""
+    """Each backward kernel against its plain version, bf16 and f32: at the
+    training slice's shapes, at head_dim 24, 64, 80 (vit_huge) and 128, at
+    vith16_384's 4608 tokens, with the step's prefix masks, sentinel tails,
+    random keys with an empty batch row, ragged N and saturated logits; and
+    three runs of each on the same inputs give the same bits. Returns the
+    bf16 max abs error at the main shape of each."""
     import torch
 
     from avjepa_tpu_torch.ops import flash_attention as fa
 
+    print("backward kernels' resources (ptxas):")
+    print_resources("attn_bwd")
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def randn(shape, dtype):
@@ -310,6 +322,16 @@ def check_bwd_kernels() -> dict:
             raise AssertionError(f"{name} disagrees with its plain version")
         return max(_max_err(g, w) for g, w in zip(got, want))
 
+    def same_bits(name, run, first):
+        again = [run() for _ in range(2)]
+        torch.cuda.synchronize()
+        first = first if isinstance(first, (tuple, list)) else (first,)
+        for other in again:
+            other = other if isinstance(other, (tuple, list)) else (other,)
+            if not all(torch.equal(a, b) for a, b in zip(first, other)):
+                raise AssertionError(f"{name}: three runs on the same inputs differ")
+        print(f"  {name}: bit-identical over 3 runs ok")
+
     main_err = {}
     print("backward kernels vs plain versions:")
     for dtype in (torch.bfloat16, torch.float32):
@@ -317,25 +339,40 @@ def check_bwd_kernels() -> dict:
         for label, b, n, h, d, kind in (
             ("context", 24, 512, 16, 64, "tail"),
             ("predictor", 48, 1408, 16, 24, "random"),
+            ("predictor prefix", 48, 1408, 16, 24, "prefix"),
+            ("context prefix", 48, 512, 16, 64, "prefix"),
             ("vit_tiny predictor", 48, 1408, 3, 128, "random"),
+            ("vit_huge context", 4, 1664, 16, 80, "random"),
+            ("vith16_384", 2, 4608, 16, 80, "tail"),
             ("ragged", 2, 200, 16, 64, None),
         ):
             qkv = randn((b, n, 3 * h * d), dtype)
             dout = randn((b, n, h * d), dtype)
             mask = _key_mask(gen, b, n, kind)
             out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
-            got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask)
+
+            def run():
+                return fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask)
+
+            got = run()
             torch.cuda.synchronize()
             want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask)
             c = h * d
-            err = compare(f"attn_bwd_packed {label} B={b} N={n} H={h} d={d}", dtype,
+            err = compare(f"attn_bwd_packed {label} B={b} N={n} H={h} d={d} mask={kind}", dtype,
                           [got[..., i * c:(i + 1) * c] for i in range(3)],
                           [want[..., i * c:(i + 1) * c] for i in range(3)])
+            del want
             if kind == "random" and got[0].abs().max().item() != 0.0:
                 raise AssertionError("attn_bwd_packed: a fully-masked batch row has a gradient")
+            if kind is not None:
+                valid = mask[:, :, None].expand(b, n, c)
+                if not bool((got[..., c:][~valid.repeat(1, 1, 2)] == 0).all()):
+                    raise AssertionError("attn_bwd_packed: masked keys have a dk or dv")
+            if dtype == torch.bfloat16 and label in ("predictor", "predictor prefix"):
+                same_bits(f"attn_bwd_packed {label}", run, got)
             if dtype == torch.bfloat16 and label == "predictor":
                 main_err["bwd_packed"] = err
-            del qkv, dout, out, lse, got, want
+            del qkv, dout, out, lse, got
         # K2 with saturated logits: query rows 0-7 see every logit above the
         # clamp, so their ds, and so their dq, is exactly 0
         b, n, h, d = 2, 256, 4, 32
@@ -358,21 +395,37 @@ def check_bwd_kernels() -> dict:
         zeros = want == 0
         if not bool(zeros[:, :8, :c].all()) or not bool((got[zeros] == 0).all()):
             raise AssertionError("attn_bwd_packed: saturated logits have a gradient")
-        # K4, classic [B, H, N, d], one fully-masked 128-key block
-        for n in (1664, 512):
-            b, h, d = 24, 3, 64
+        # K4, classic [B, H, N, d]: one fully-masked 128-key block (the
+        # training slice's shapes), a sentinel tail, and random keys with an
+        # empty batch row at head_dim 24, 80 and 128
+        for b, n, d, kind in ((24, 1664, 64, "block"), (24, 512, 64, "block"),
+                              (24, 512, 64, "tail"), (4, 1408, 24, "random"),
+                              (4, 1664, 80, "random"), (4, 512, 128, "random")):
+            h = 3
             q, k, v, dout = (randn((b, h, n, d), dtype) for _ in range(4))
-            mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
-            mask[:, 128:256] = False
+            if kind == "block":
+                mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+                mask[:, 128:256] = False
+            else:
+                mask = _key_mask(gen, b, n, kind)
             out, lse = fa.flash_attention_fwd(q, k, v, mask)
-            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, mask)
+
+            def run():
+                return fa.flash_attention_bwd(q, k, v, out, lse, dout, mask)
+
+            got = run()
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask)
-            err = compare(f"attn_bwd B={b} H={h} N={n} d={d} masked", dtype, got, want)
-            if not bool((got[1][:, :, 128:256] == 0).all()):
+            err = compare(f"attn_bwd B={b} H={h} N={n} d={d} mask={kind}", dtype, got, want)
+            if not bool((got[1].transpose(1, 2)[~mask] == 0).all()):
                 raise AssertionError("attn_bwd: masked keys have a dk")
-            if dtype == torch.bfloat16 and n == 512:
+            if kind == "random" and any(x[0].abs().max().item() != 0.0 for x in got):
+                raise AssertionError("attn_bwd: a fully-masked batch row has a gradient")
+            if dtype == torch.bfloat16 and (n, kind) == (512, "tail"):
+                same_bits("attn_bwd", run, got)
+            if dtype == torch.bfloat16 and (n, kind) == (512, "block"):
                 main_err["bwd"] = err
+            del q, k, v, dout, out, lse, got, want
     return main_err
 
 
@@ -391,6 +444,17 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+TIME_ROUNDS = 5
+
+
+def _time_rounds(fn, iters: int, rounds: int = TIME_ROUNDS) -> tuple[float, float, float]:
+    """(min, median, max) ms per call over ``rounds`` rounds of _time_ms."""
+    import statistics
+
+    ms = [_time_ms(fn, iters) for _ in range(rounds)]
+    return min(ms), statistics.median(ms), max(ms)
+
+
 def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """(least ms on an H100 SXM, what bounds it) for work whose operations
     run at ``peak`` (bf16 tensor cores by default)."""
@@ -398,10 +462,31 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# exponentials a clock on one SM: 16 MUFU lanes (4 per SM sub-partition)
+MUFU_PER_CLOCK = 16
+
+
+def _exp_floor_ms(n_exp: float) -> float:
+    """Least ms for ``n_exp`` exponentials on this card's MUFU units at its
+    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (sms * MUFU_PER_CLOCK * mhz * 1e6) * 1e3
+
+
 def time_kernels() -> dict:
     """bf16 kernel, plain and library (SDPA) times at each kernel's main
     shape, with its bound: {key: (ms, plain_ms, library_ms, bound_ms,
-    bound_by)}. Work counts only valid keys (masked key tiles are skipped)."""
+    bound_by)}, kernel and library the medians of TIME_ROUNDS rounds (each
+    round's min/median/max printed). Work counts only valid keys (masked key
+    tiles are skipped). K2 at the predictor's shape with random keys (the
+    uncompacted union) and with the step's prefix masks, and at the context
+    encoder's d=64 shape; beside the backward kernels' bounds, the floor of
+    their exponentials (two passes, one per valid score each)."""
     import torch
     import torch.nn.functional as F
 
@@ -422,17 +507,20 @@ def time_kernels() -> dict:
         q, k, v, m4 = sdpa_inputs(q, k, v, mask)
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=m4)
         g = torch.randn_like(o)
-        return _time_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 10)
+        return _time_rounds(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 10)
 
     def sdpa_fwd_ms(q, k, v, mask):
         q, k, v, m4 = sdpa_inputs(q, k, v, mask)
         with torch.no_grad():
-            return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4), 10)
+            return _time_rounds(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4), 10)
 
-    times = {}
-    # K1: the target encoder's unmasked layer; K2: a predictor layer
+    times, rounds, floors = {}, {}, {}
+    # K1: the target encoder's unmasked layer; K2: a predictor layer (random
+    # keys, and the step's prefix masks) and a context layer
     for key, b, n, h, d, kind in (("fwd_packed", 24, 1664, 16, 64, None),
-                                  ("bwd_packed", 48, 1408, 16, 24, "random")):
+                                  ("bwd_packed", 48, 1408, 16, 24, "random"),
+                                  ("bwd_packed prefix", 48, 1408, 16, 24, "prefix"),
+                                  ("bwd_packed context", 24, 512, 16, 64, "tail")):
         qkv, dout = randn((b, n, 3 * h * d)), randn((b, n, h * d))
         mask = _key_mask(gen, b, n, kind)
         valid = b * n if mask is None else int(mask.sum().item())
@@ -451,7 +539,9 @@ def time_kernels() -> dict:
             # reads qkv, out, dO, lse, bias; writes dqkv
             bound = _bound(10 * h * d * n * valid,
                            (8 * b * n * h * d) * 2 + b * h * n * 4 + b * n * 4)
-        times[key] = (_time_ms(run[0], 20), _time_ms(run[1], 3), lib, *bound)
+            floors[key] = _exp_floor_ms(2 * h * n * valid)
+        rounds[key] = (_time_rounds(run[0], 20), lib)
+        times[key] = (rounds[key][0][1], _time_ms(run[1], 3), lib[1], *bound)
         del qkv, dout, out, lse, q, k, v
     # K3: the vit_tiny target encoder; K4: a vit_tiny context layer
     for key, b, h, n, d in (("fwd", 24, 3, 1664, 64), ("bwd", 24, 3, 512, 64)):
@@ -469,10 +559,16 @@ def time_kernels() -> dict:
                    lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask))
             lib = sdpa_bwd_ms(q, k, v, mask)
             bound = _bound(10 * h * d * n * valid, 8 * b * h * n * d * 2 + b * h * n * 4)
-        times[key] = (_time_ms(run[0], 20), _time_ms(run[1], 3), lib, *bound)
+            floors[key] = _exp_floor_ms(2 * h * n * valid)
+        rounds[key] = (_time_rounds(run[0], 20), lib)
+        times[key] = (rounds[key][0][1], _time_ms(run[1], 3), lib[1], *bound)
     for key, (ms, plain, lib, bound, by) in times.items():
-        print(f"time {key} bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, library (SDPA) "
-              f"{lib:.3f} ms, bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of the bound")
+        (k_min, _, k_max), (l_min, _, l_max) = rounds[key]
+        floor = f", exponential floor {floors[key]:.3f} ms" if key in floors else ""
+        print(f"time {key} bf16: kernel {ms:.3f} ms (median of {TIME_ROUNDS} rounds; "
+              f"{k_min:.3f}-{k_max:.3f}), plain {plain:.3f} ms, library (SDPA) {lib:.3f} ms "
+              f"({l_min:.3f}-{l_max:.3f}), bound {bound:.3f} ms ({by}){floor}, "
+              f"{100 * bound / ms:.1f}% of the bound, kernel/SDPA {ms / lib:.2f}")
     return times
 
 
@@ -512,10 +608,18 @@ def _profile(run, label: str, filename: str, steps: int = 2) -> float:
     total = sum(e.self_device_time_total for e in events) / (1e3 * steps)
     fwd = sum(e.self_device_time_total for e in events
               if "attn_fwd" in e.key) / (1e3 * steps)
+    bwd = [e for e in events if "attn_bwd" in e.key]
+    bwd_ms = sum(e.self_device_time_total for e in bwd) / (1e3 * steps)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(f"{label}: profile, {total:.1f} ms of device kernels per call; forward attention "
           f"kernel {fwd:.1f} ms ({100 * fwd / total:.1f}%); top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / (1e3 * steps):.2f} ms" for e in top))
+    if bwd:
+        print(f"{label}: backward attention kernels {bwd_ms:.1f} ms "
+              f"({100 * bwd_ms / total:.1f}%): " + "; ".join(
+                  f"{e.key[e.key.index('attn_bwd'):].split('(')[0]} "
+                  f"{e.self_device_time_total / (1e3 * steps):.2f} ms"
+                  f" ({e.count // steps} a call)" for e in bwd))
     return total
 
 
@@ -758,11 +862,14 @@ def check_train_vs_plain(workdir: str, batch: int = 4) -> None:
         raise AssertionError("kernel-path step disagrees with the plain-attention step")
 
 
-def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
+def time_train_step(workdir: str, remat: bool, steps: int = 5, rounds: int = 1) -> dict:
     """ViT-L AV train step on a resident batch of 24, with per-block remat
-    (the YAML's setting) or without: ms by CUDA events, clips/s, peak memory;
-    with remat, then a torch.profiler window of 2 steps (_profile, to
-    chiprun_out/train_profile.txt)."""
+    (the YAML's setting) or without: ms by CUDA events over ``rounds``
+    rounds of ``steps`` steps (each round printed; the median kept),
+    clips/s, peak memory; with remat, then a torch.profiler window of 2
+    steps (_profile, to chiprun_out/train_profile.txt)."""
+    import statistics
+
     import torch
 
     from avjepa_tpu_torch.config import load_config
@@ -782,12 +889,14 @@ def time_train_step(workdir: str, remat: bool, steps: int = 5) -> dict:
 
     run()
     torch.cuda.reset_peak_memory_stats()
-    ms = _time_ms(run, steps)
+    all_ms = [_time_ms(run, steps) for _ in range(rounds)]
+    ms = statistics.median(all_ms)
     peak = torch.cuda.max_memory_allocated()
     b = cfg.data.batch_size
     print(f"train: ViT-L AV step {ms:.1f} ms on a resident batch of {b} (CUDA events, "
-          f"{steps} steps), {1000 * b / ms:.2f} clips/s; peak allocated "
-          f"{peak / 2**30:.2f} GiB; remat {cfg.tpu.remat}")
+          f"{steps} steps a round; rounds {', '.join(f'{x:.1f}' for x in all_ms)}), "
+          f"{1000 * b / ms:.2f} clips/s; peak allocated {peak / 2**30:.2f} GiB; "
+          f"remat {cfg.tpu.remat}")
     result = {"step_ms": ms, "clips_per_s": 1000 * b / ms, "peak_gib": peak / 2**30}
     if not remat:
         return result
@@ -1154,7 +1263,7 @@ def main() -> None:
         run_slice(workdir)
         train = run_train(workdir)
         check_train_vs_plain(workdir)
-        time_train_step(workdir, remat=True)
+        time_train_step(workdir, remat=True, rounds=3)
         time_train_step(workdir, remat=False)
         run_avprediction(workdir, train["ckpt"])
         check_probe_vs_plain(workdir, train["ckpt"])

@@ -51,6 +51,8 @@ def _port_packed_grad(qkv, g, h, mask):
         (1, 128, 16, 24, "masked"),        # the ViT-L predictor's head_dim
         (2, 200, 4, 32, "masked"),         # ragged N: JAX pads to 256 and masks the pad
         (2, 128, 2, 64, "empty_row"),      # batch row 1 has no valid key
+        (1, 128, 8, 80, "masked"),         # vit_huge's head_dim (8 heads of 80 pack)
+        (2, 192, 16, 24, "prefix"),        # the step's compacted masks: a valid prefix
     ],
 )
 def test_packed_bwd_ref_matches_jax(b, n, h, d, case):
@@ -60,6 +62,8 @@ def test_packed_bwd_ref_matches_jax(b, n, h, d, case):
     mask = None if case == "unmasked" else _mask(rng, b, n)
     if case == "empty_row":
         mask[1] = False
+    if case == "prefix":  # sentinel tails of 40 and 101 keys
+        mask = np.arange(n)[None, :] < np.array([[152], [91]])
     got = _port_packed_grad(qkv, g, h, mask)
     want = _jax_packed_grad(qkv, g, h, mask)
     assert got.shape == qkv.shape

@@ -390,6 +390,52 @@ def test_sigterm_checkpoints_and_stops(tmp_path, monkeypatch):
     assert summary["preempted"] and len(calls) == 2 and saved["step"] == 2
 
 
+def test_sigterm_then_resume_preempt_through_the_cli(tmp_path, monkeypatch):
+    """SIGTERM during step 2 of 4 (2 epochs of 2), then the same YAML
+    (meta.load_checkpoint: false) relaunched through the CLI entry with
+    AVJEPA_RESUME_PREEMPT=1: the run logs ``resumed from step 2`` and runs
+    the second epoch's 2 steps only, continuing the optimizer from step 2."""
+    import logging
+    import signal
+
+    from avjepa_tpu_torch.train import pretrain
+
+    calls = []
+
+    def step_then_signal(*args, **kwargs):
+        out = train_step(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    path, d = _yaml(tmp_path, optimization={"ipe": 2, "epochs": 2},
+                    meta={"load_checkpoint": False})
+    monkeypatch.setattr(pretrain, "train_step", step_then_signal)
+    assert launch(path, device="cpu")["preempted"] and len(calls) == 2
+    monkeypatch.setattr(pretrain, "train_step", train_step)
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger = logging.getLogger("avjepa_tpu_torch")
+    logger.addHandler(handler)
+    monkeypatch.setenv("AVJEPA_RESUME_PREEMPT", "1")
+    try:
+        summary = launch(path, device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    assert any(m.startswith("resumed from step 2 ") for m in records), records
+    tag = d["logging"]["write_tag"]
+    csv = open(os.path.join(tmp_path, f"{tag}_r0.csv")).read().splitlines()
+    assert [r.split(",")[:2] for r in csv[1:] if not r.startswith("epoch")] == [
+        ["1", "0"], ["1", "1"], ["2", "0"], ["2", "1"]]
+    saved = torch.load(os.path.join(tmp_path, f"{tag}-latest.pth.tar"),
+                       map_location="cpu", weights_only=True)
+    assert summary["step"] == 4 and saved["step"] == 4
+    assert saved["opt"]["state"][0]["step"].item() == 4
+
+
 def test_vjepa_video_only_pretrain_on_cpu(tmp_path):
     """The video-only app: no audio tokens, the video-only collator."""
     path, d = _yaml(tmp_path, data={"dataset_type": "videodataset"})
