@@ -23,13 +23,15 @@
 //
 // What bounds it on the H100: per (batch, head) the two passes below do
 // seven N x N x d products (14*N^2*d flops with d padded as stated) and two
-// exponentials a valid score. At d = 64 the products dominate: 10*N^2*d
-// flops of the contract against ~1.3 MB of q/k/v/o/dO/dq/dk/dv traffic, far
-// above the ~295 flop/byte ridge. At d = 24 (the ViT-L predictor) a score
-// costs only ~400 tensor-core flops in all, and the exponentials (16 a
-// clock on an SM's MUFU units) and the scalar work around them (~10 f32
-// instructions a score and pass) take longer than the products: that, not
-// the two passes, is the floor there.
+// exponentials a score of every key tile they do not skip. At d = 64 the
+// products dominate: 10*N^2*d flops of the contract against ~1.3 MB of
+// q/k/v/o/dO/dq/dk/dv traffic, far above the ~295 flop/byte ridge. At
+// d = 24 (the ViT-L predictor) a score costs ~450 tensor-core flops in all,
+// and the exponentials (16 a clock on an SM's MUFU units) and the ~10 f32
+// instructions around each of them a pass take longer than the products:
+// that, not the number of passes, is the floor there. Measured (PERF.md),
+// the kernels run well above both floors, waiting on the chain product ->
+// exponentials -> product more than issuing.
 //
 // Design: two passes, deterministic. The TPU grid runs in order, so its
 // kernel carries dq in VMEM scratch across key blocks; Hopper blocks run in
@@ -37,35 +39,42 @@
 // This port takes the second pass (no f32 dq buffer, no atomics, the same
 // bits on every run), at the price of recomputing s and dp. A single pass
 // with f32 atomics into dq would save two of the seven products and half
-// the exponentials, and give up bit-identical runs.
-//   pass 1 (dk, dv): a block of 8 warps owns 128 keys (4 warps, 64 keys,
-//     where the grid would have fewer than 4 blocks a SM, or at d > 64);
-//     each warp owns 16 keys and walks every query tile, computing
-//     s^T = k.qs^T and dp^T = v.dO^T with keys as the MMA rows, so p^T and
-//     ds^T stay in registers and are exactly the A operand of
-//     dv += p^T.dO and dk += ds^T.qs (FlashAttention-2 layout). A block
-//     whose keys are all masked does no work; a "full" block (every key
-//     below N with bias exactly 0) runs its whole loop without a bias add.
-//   pass 2 (dq): a block owns 128 (or 64) queries and first lists its 64-key
-//     tiles (list_key_tiles): all-masked tiles are left out, full tiles add
-//     no bias, a partial tile's 64 biases are staged in shared memory with
-//     its K/V copy. Each warp owns 16 queries: s = qs.k^T, dp = dO.v^T, ds
-//     in registers, dq += ds.ks.
+// the exponentials, and give up bit-identical runs: kept out.
+//   pass 1 (dk, dv): a block owns 128 keys (64 on the mma.sync path) and
+//     walks every query tile: s^T = k.qs^T and dp^T = v.dO^T with keys as
+//     the MMA rows, so p^T and ds^T stay in registers and are exactly the A
+//     operand of dv += p^T.dO and dk += ds^T.qs (FlashAttention-2 layout).
+//     A block whose keys are all masked does no work; a "full" block (every
+//     key below N with bias exactly 0) runs its whole loop with no bias add.
+//   pass 2 (dq): a block owns 128 queries (64 on the mma.sync path) and
+//     first lists its 64-key tiles (list_key_tiles): all-masked tiles are
+//     left out, full tiles add no bias, a partial tile's 64 biases are
+//     staged in shared memory with its K/V copy. s = qs.k^T, dp = dO.v^T,
+//     ds in registers, dq += ds.ks.
 // Streamed tiles (pass 1: q, dO, lse and delta; pass 2: K, V and a partial
-// tile's bias) go through a 3-slot cp.async ring (2 slots where 3 would
-// leave one block a SM): tiles j+1 and j+2 are in flight while tile j is
-// computed, one barrier a tile. The threads that copied a tile finish it
-// when it lands: qs = T(q * scale) in place (pass 1), a ks = T(k * scale)
-// copy (pass 2), lse into log2 units. Scores are in log2 units with one
-// MUFU ex2 each (p_ds2). Products are mma.sync m16n8k16 (f32 accumulate)
-// fed by ldmatrix; S and dP reduce over d zero-padded to a multiple of 16
-// in shared memory and registers only (24 runs as 32), dK, dV and dQ
-// accumulate over d rounded up to 8 (24 runs at 24), and only the d real
-// columns are written. f32 inputs (exact comparisons, not speed) take
-// simple FMA kernels over 32 x 32 shared-memory tiles with the accurate
-// expf. Not yet used: wgmma, TMA, warp specialisation.
+// tile's bias) go through a 3-slot cp.async ring (commit_group/wait_group;
+// 2 slots where 3 would leave one block a SM): tiles j+1 and j+2 are in
+// flight while tile j is computed, one barrier a tile. The threads that
+// copied a tile finish it when it lands: qs = T(q * scale) in place (pass
+// 1), a ks = T(k * scale) copy (pass 2), lse into log2 units. Every score
+// takes one MUFU ex2 in log2 units (p_ds2).
+// Products, d <= 64 (d zero-padded to 32 or 64 in shared memory and
+// registers only, so d = 24 runs every product at 32): wgmma, two
+// warpgroups of 64 rows a block. S^T, dP^T, S and dP are SS (both operands
+// K-major in swizzled tiles, as the forward's Q.K^T); dV, dK and dQ take p^T,
+// ds^T or ds from registers and dO, qs or ks as an MN-major B operand (as
+// the forward's P.V). A 64-wide tile runs as two 32-wide parts where the
+// registers freed let more blocks fit a SM (pass 1 at d = 64, pass 2 at
+// d <= 32). d > 64 (d padded to a multiple of 16): mma.sync m16n8k16 fed by
+// ldmatrix, 4 warps of 16 rows a block, 32-query tiles in pass 1. Only the
+// d real columns are written. f32 inputs (exact comparisons, not speed)
+// take simple FMA kernels over 32 x 32 shared-memory tiles with the
+// accurate expf. Not yet used: TMA and mbarriers, warp specialisation,
+// overlap of one tile's products with another's exponentials, wgmma at
+// d > 64.
 
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -148,27 +157,24 @@ __device__ __forceinline__ float2 row_stats(float lse, bool in) {
   return make_float2(nl, SOFTMAX_CLAMP * LOG2E + nl);
 }
 
-// Tile geometry of one instantiation: DK = the reduction dim of S and dP
-// (d zero-padded to a multiple of 16 for the k16 products), DO = the output
-// dim of dK, dV and dQ (d rounded up to 8, the n8 step: d = 24 runs its
-// three output products at 24, not 32), NW warps of 16 rows each. Shared
-// tiles are [rows][DK] with a row stride of DK + 8 elements (ldmatrix reads
-// 8 rows without bank conflicts).
-template <int DK, int NW>
+// Tile geometry of the mma.sync kernels (d > 64): DK = d zero-padded to a
+// multiple of 16 (the k16 step of S and dP; also the n of dK, dV and dQ),
+// 4 warps of 16 rows each. Shared tiles are [rows][DK] with a row stride of
+// DK + 8 elements (ldmatrix reads 8 rows without bank conflicts).
+template <int DK>
 struct Geo {
   static constexpr int LD = DK + 8;
   static constexpr int CHUNKS = DK / 8;  // 16-byte chunks a row
-  static constexpr int THREADS = NW * 32;
-  static constexpr int ROWS = NW * 16;   // keys (pass 1) or queries (pass 2) a block
+  static constexpr int ROWS = NWARPS * 16;  // keys (pass 1) or queries (pass 2) a block
 };
 
 // cp.async a [ROWS][DK] tile (rows from `row0`; zero past N and past d)
-// into shared memory; each thread copies chunks tid, tid + THREADS, ...
-template <typename T, int DK, int NW, int ROWS>
+// into shared memory; each thread copies chunks tid, tid + NTHREADS, ...
+template <typename T, int DK, int ROWS>
 __device__ __forceinline__ void copy_tile(T* dst, const T* src, long long sn, int row0,
                                           int N, int d) {
-  using G = Geo<DK, NW>;
-  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += G::THREADS) {
+  using G = Geo<DK>;
+  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += NTHREADS) {
     const int r = i / G::CHUNKS, c = (i % G::CHUNKS) * 8, row = row0 + r;
     const bool in = row < N && c < d;
     cp_async16(dst + r * G::LD + c, in ? src + row * sn + c : src, in);
@@ -177,10 +183,10 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, long long sn, in
 
 // dst = T(f32(src) * scale) over the chunks this thread copied with
 // copy_tile (so it needs only its own copies to have landed); dst may be src
-template <typename T, int DK, int NW, int ROWS>
+template <typename T, int DK, int ROWS>
 __device__ __forceinline__ void scale_tile(T* dst, const T* src, float scale) {
-  using G = Geo<DK, NW>;
-  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += G::THREADS) {
+  using G = Geo<DK>;
+  for (int i = threadIdx.x; i < ROWS * G::CHUNKS; i += NTHREADS) {
     const int off = (i / G::CHUNKS) * G::LD + (i % G::CHUNKS) * 8;
     uint32_t v[4];
     *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src + off);
@@ -189,27 +195,22 @@ __device__ __forceinline__ void scale_tile(T* dst, const T* src, float scale) {
   }
 }
 
-// acc[DO/8][4] += a (16 x 16 from registers) . B, B = 16 rows of `b` (row
-// stride LD, from row `r0`) x DO columns, read with ldmatrix.trans: the
-// product of dV, dK and dQ, at n = DO in steps of 8
-template <typename T, int DK, int DO>
-__device__ __forceinline__ void mma_rows(float (&acc)[DO / 8][4], const uint32_t (&a)[4],
+// acc[DK/8][4] += a (16 x 16 from registers) . B, B = 16 rows of `b` (row
+// stride LD, from row `r0`) x DK columns, read with ldmatrix.trans: the
+// product of dV, dK and dQ
+template <typename T, int DK>
+__device__ __forceinline__ void mma_rows(float (&acc)[DK / 8][4], const uint32_t (&a)[4],
                                          const T* b, int r0) {
   constexpr int LD = DK + 8;
   const int lane = threadIdx.x % 32, lm = lane / 8, lr = lane % 8;
   // rows r0 + {0-7, 8-15, 0-7, 8-15}, columns 16c + {0-7, 0-7, 8-15, 8-15}
   const T* p = b + (r0 + lr + (lm % 2) * 8) * LD + (lm / 2) * 8;
 #pragma unroll
-  for (int c = 0; c < DO / 16; ++c) {
+  for (int c = 0; c < DK / 16; ++c) {
     uint32_t f[4];
     ldmatrix_x4_trans(f, p + c * 16);
     Mma<T>::run(acc[2 * c], a, f[0], f[1]);
     Mma<T>::run(acc[2 * c + 1], a, f[2], f[3]);
-  }
-  if (DO % 16) {  // the last 8 columns (lanes 16-31's addresses are unused)
-    uint32_t f[2];
-    ldmatrix_x2_trans(f, p + (DO / 16) * 16);
-    Mma<T>::run(acc[DO / 8 - 1], a, f[0], f[1]);
   }
 }
 
@@ -300,12 +301,12 @@ __device__ __forceinline__ void grads_by_query(float (&s)[NT][4], float (&dp)[NT
 
 constexpr int NSTAGE = 3;  // tiles in a cp.async ring: two in flight, one read
 
-// pass 1: dk, dv of ROWS keys. QT = queries a streamed tile.
-template <typename T, bool CLAMPED, int DK, int DO, int NW, int QT>
-__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
-attn_bwd_dkdv_kernel(const Params prm) {
-  using G = Geo<DK, NW>;
-  constexpr int LD = G::LD, ROWS = G::ROWS, THREADS = G::THREADS;
+// pass 1 on mma.sync: dk, dv of 64 keys, over 32-query tiles (dK, dV, S^T
+// and dP^T of 64 keys at d > 64 hold ~2 * DK + 32 f32 registers a thread)
+template <typename T, bool CLAMPED, int DK>
+__global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params prm) {
+  using G = Geo<DK>;
+  constexpr int LD = G::LD, ROWS = G::ROWS, QT = 32;
   constexpr int SLOT = 2 * QT * LD;  // a ring slot: q | dO
   extern __shared__ __align__(128) unsigned char smem[];
   T* sk = reinterpret_cast<T*>(smem);
@@ -326,9 +327,9 @@ attn_bwd_dkdv_kernel(const Params prm) {
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
   const long long bh = static_cast<long long>(b) * prm.H + h;
 
-  float dk[DO / 8][4], dv[DO / 8][4];
+  float dk[DK / 8][4], dv[DK / 8][4];
 #pragma unroll
-  for (int i = 0; i < DO / 8; ++i) {
+  for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.0f;
   }
@@ -339,8 +340,8 @@ attn_bwd_dkdv_kernel(const Params prm) {
   const bool any = __syncthreads_or(tid < ROWS && kb > -1.0f);
   const bool full = !__syncthreads_or(kb != 0.0f);
   if (any) {
-    copy_tile<T, DK, NW, ROWS>(sk, kg, prm.k_sn, k0, N, d);
-    copy_tile<T, DK, NW, ROWS>(sv, vg, prm.v_sn, k0, N, d);
+    copy_tile<T, DK, ROWS>(sk, kg, prm.k_sn, k0, N, d);
+    copy_tile<T, DK, ROWS>(sv, vg, prm.v_sn, k0, N, d);
     cp_async_commit();
     const int nq = (N + QT - 1) / QT;
     // copy group of query tile i into slot i % NSTAGE (empty past the last
@@ -349,8 +350,8 @@ attn_bwd_dkdv_kernel(const Params prm) {
       if (i < nq) {
         T* sq = ring + (i % NSTAGE) * SLOT;
         float* st = sstat + (i % NSTAGE) * 6 * QT;
-        copy_tile<T, DK, NW, QT>(sq, qg, prm.q_sn, i * QT, N, d);
-        copy_tile<T, DK, NW, QT>(sq + QT * LD, og, prm.o_sn, i * QT, N, d);
+        copy_tile<T, DK, QT>(sq, qg, prm.q_sn, i * QT, N, d);
+        copy_tile<T, DK, QT>(sq + QT * LD, og, prm.o_sn, i * QT, N, d);
         if (tid < QT) {
           const int row = i * QT + tid;
           const bool in = row < N;
@@ -380,7 +381,7 @@ attn_bwd_dkdv_kernel(const Params prm) {
       T* so = sq + QT * LD;
       float* st = sstat + (i % NSTAGE) * 6 * QT;
       float4* qstat = reinterpret_cast<float4*>(st + 2 * QT);
-      if (CLAMPED) scale_tile<T, DK, NW, QT>(sq, sq, prm.scale);
+      if (CLAMPED) scale_tile<T, DK, QT>(sq, sq, prm.scale);
       if (tid < QT) {
         const float2 r = row_stats(st[tid], i * QT + tid < N);
         qstat[tid] = make_float4(r.x, r.y, st[QT + tid], 0.0f);
@@ -403,8 +404,8 @@ attn_bwd_dkdv_kernel(const Params prm) {
         uint32_t pa[4], sa[4];
         pack_a<T>(pa, sc, kt);
         pack_a<T>(sa, dpt, kt);
-        mma_rows<T, DK, DO>(dv, pa, so, kt * 16);
-        mma_rows<T, DK, DO>(dk, sa, sq, kt * 16);
+        mma_rows<T, DK>(dv, pa, so, kt * 16);
+        mma_rows<T, DK>(dk, sa, sq, kt * 16);
       }
     }
     cp_async_wait_all();  // no copy may still target shared memory at exit
@@ -417,7 +418,7 @@ attn_bwd_dkdv_kernel(const Params prm) {
     const int key = k0 + warp * 16 + g + 8 * r;
     if (key >= N) continue;
 #pragma unroll
-    for (int dt = 0; dt < DO / 8; ++dt) {
+    for (int dt = 0; dt < DK / 8; ++dt) {
       const int c = dt * 8 + 2 * t;
       if (c < d) {
         *reinterpret_cast<uint32_t*>(dkg + key * prm.dk_sn + c) =
@@ -431,20 +432,19 @@ attn_bwd_dkdv_kernel(const Params prm) {
 
 // ring slots of pass 2: 3, or 2 where 3 would leave room for only one
 // block a SM (a slot holds K, V and, for K2, ks: KEY_TILE rows each)
-template <bool CLAMPED, int DK, int NW>
+template <bool CLAMPED, int DK>
 __host__ __device__ constexpr int dq_stages() {
   constexpr int tiles = CLAMPED ? 3 : 2;
-  constexpr int bytes = 2 * (2 * NW * 16 + NSTAGE * tiles * KEY_TILE) * (DK + 8);
+  constexpr int bytes = 2 * (2 * Geo<DK>::ROWS + NSTAGE * tiles * KEY_TILE) * (DK + 8);
   return 2 * bytes <= 200 * 1024 ? NSTAGE : 2;
 }
 
-// pass 2: dq of ROWS queries, over the block's listed key tiles
-template <typename T, bool CLAMPED, int DK, int DO, int NW>
-__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
-attn_bwd_dq_kernel(const Params prm) {
-  using G = Geo<DK, NW>;
-  constexpr int LD = G::LD, ROWS = G::ROWS, THREADS = G::THREADS, KT = KEY_TILE;
-  constexpr int STAGES = dq_stages<CLAMPED, DK, NW>();
+// pass 2 on mma.sync: dq of 64 queries, over the block's listed key tiles
+template <typename T, bool CLAMPED, int DK>
+__global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(const Params prm) {
+  using G = Geo<DK>;
+  constexpr int LD = G::LD, ROWS = G::ROWS, KT = KEY_TILE;
+  constexpr int STAGES = dq_stages<CLAMPED, DK>();
   constexpr int TILES = CLAMPED ? 3 : 2;  // K, V and (K2) ks = T(k * scale)
   constexpr int SLOT = TILES * KT * LD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -466,10 +466,10 @@ attn_bwd_dq_kernel(const Params prm) {
   const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
   const long long bh = static_cast<long long>(b) * prm.H + h;
 
-  copy_tile<T, DK, NW, ROWS>(sq, qg, prm.q_sn, q0, N, d);
-  copy_tile<T, DK, NW, ROWS>(so, og, prm.o_sn, q0, N, d);
+  copy_tile<T, DK, ROWS>(sq, qg, prm.q_sn, q0, N, d);
+  copy_tile<T, DK, ROWS>(so, og, prm.o_sn, q0, N, d);
   cp_async_commit();
-  const int ntiles = list_key_tiles<THREADS>(bias_g, N, list);
+  const int ntiles = list_key_tiles<NTHREADS>(bias_g, N, list);
 
   // copy group of listed key tile i into slot i % STAGES (empty past the
   // list); a partial tile's bias comes along
@@ -477,8 +477,8 @@ attn_bwd_dq_kernel(const Params prm) {
     if (i < ntiles) {
       const int e = list[i], k0 = (e >> 1) * KT, slot = i % STAGES;
       T* sk = ring + slot * SLOT;
-      copy_tile<T, DK, NW, KT>(sk, kg, prm.k_sn, k0, N, d);
-      copy_tile<T, DK, NW, KT>(sk + KT * LD, vg, prm.v_sn, k0, N, d);
+      copy_tile<T, DK, KT>(sk, kg, prm.k_sn, k0, N, d);
+      copy_tile<T, DK, KT>(sk + KT * LD, vg, prm.v_sn, k0, N, d);
       if (bias_g && !(e & 1) && tid < KT) {
         const bool in = k0 + tid < N;
         cp_async4(sbias + slot * KT + tid, in ? bias_g + k0 + tid : bias_g, in);
@@ -498,11 +498,11 @@ attn_bwd_dq_kernel(const Params prm) {
     delta[r] = row < N ? prm.delta[bh * N + row] : 0.0f;
   }
   cp_async_wait<STAGES - 1>();  // the q and dO tiles (this thread's copies)
-  if (CLAMPED) scale_tile<T, DK, NW, ROWS>(sq, sq, prm.scale);  // qs, once
+  if (CLAMPED) scale_tile<T, DK, ROWS>(sq, sq, prm.scale);  // qs, once
 
-  float dq[DO / 8][4];
+  float dq[DK / 8][4];
 #pragma unroll
-  for (int i = 0; i < DO / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
+  for (int i = 0; i < DK / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
 
   for (int i = 0; i < ntiles; ++i) {
     // tile i has landed for this thread; it makes its part of ks (K2) and
@@ -513,7 +513,7 @@ attn_bwd_dq_kernel(const Params prm) {
     T* sk = ring + slot * SLOT;
     T* sv = sk + KT * LD;
     float* sb = sbias + slot * KT;
-    if (CLAMPED) scale_tile<T, DK, NW, KT>(sk + 2 * KT * LD, sk, prm.scale);
+    if (CLAMPED) scale_tile<T, DK, KT>(sk + 2 * KT * LD, sk, prm.scale);
     if (!(e & 1) && tid < KT) {
       // keys past N, or all keys without a bias array: set here, not copied
       const float bv = k0 + tid >= N ? NEG_BIAS : bias_g ? sb[tid] : 0.0f;
@@ -536,7 +536,7 @@ attn_bwd_dq_kernel(const Params prm) {
     for (int kt = 0; kt < KT / 16; ++kt) {
       uint32_t sa[4];
       pack_a<T>(sa, dp, kt);
-      mma_rows<T, DK, DO>(dq, sa, kb, kt * 16);
+      mma_rows<T, DK>(dq, sa, kb, kt * 16);
     }
   }
   cp_async_wait_all();
@@ -547,11 +547,365 @@ attn_bwd_dq_kernel(const Params prm) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= N) continue;
 #pragma unroll
-    for (int dt = 0; dt < DO / 8; ++dt) {
+    for (int dt = 0; dt < DK / 8; ++dt) {
       const int c = dt * 8 + 2 * t;
       if (c < d) {
         *reinterpret_cast<uint32_t*>(dqg + row * prm.dq_sn + c) =
             Mma<T>::pack(dq[dt][2 * r], dq[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / f16 at d <= 64: wgmma
+// ---------------------------------------------------------------------------
+
+// cp.async a [ROWS][DP] tile (rows from `row0`; zero past N and past d)
+// into shared memory laid out as wgmma reads it (TileLayout); each thread
+// copies chunks tid, tid + THREADS, ...
+template <typename T, int DP, int THREADS, int ROWS>
+__device__ __forceinline__ void copy_wg_tile(unsigned char* dst, const T* src, long long sn,
+                                             int row0, int N, int d) {
+  constexpr int CHUNKS = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS, row = row0 + r;
+    const bool in = row < N && 8 * c < d;
+    cp_async16(dst + TileLayout<DP>::offset(r, c, ROWS), in ? src + row * sn + 8 * c : src, in);
+  }
+}
+
+// dst = T(f32(src) * scale) over the chunks this thread copied with
+// copy_wg_tile; dst may be src
+template <typename T, int DP, int THREADS, int ROWS>
+__device__ __forceinline__ void scale_wg_tile(unsigned char* dst, const unsigned char* src,
+                                              float scale) {
+  constexpr int CHUNKS = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int off = TileLayout<DP>::offset(i / CHUNKS, i % CHUNKS, ROWS);
+    uint32_t v[4];
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src + off);
+    scale_frag<T>(v, scale);
+    *reinterpret_cast<uint4*>(dst + off) = *reinterpret_cast<uint4*>(v);
+  }
+}
+
+constexpr int WG_THREADS = 256;  // two warpgroups, 64 rows each
+constexpr int WG_ROWS = 128;
+
+// d (+)= A . B^T over N rows of B (wgmma m64nNk16, both operands K-major)
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    WgmmaSS<T>::n64(d, da, db, accumulate);
+  } else {
+    WgmmaSS<T>::n32(d, da, db, accumulate);
+  }
+}
+
+// pass 1 on wgmma: dk, dv of 128 keys (64 a warpgroup) over 64-query tiles.
+// S^T = K.Qs^T and dP^T = V.dO^T are SS m64n64k16 (both operands K-major,
+// as the forward's Q.K^T); dV += P^T.dO and dK += dS^T.Qs take P^T and dS^T
+// from registers and dO, Qs as MN-major B operands (as the forward's P.V).
+template <typename T, bool CLAMPED, int DP>
+__global__ void __launch_bounds__(WG_THREADS, 2) attn_bwd_dkdv_wgmma_kernel(const Params prm) {
+  using L = TileLayout<DP>;
+  // queries a part of the tile (see the loop): 32 at d=64, where dK and dV
+  // take 64 registers, so that two blocks fit a SM
+  constexpr int SUB = DP <= 32 ? 64 : 32;
+  constexpr int QT = 64, KV_BYTES = WG_ROWS * DP * 2, Q_BYTES = QT * DP * 2;
+  constexpr int SLOT = 2 * Q_BYTES;  // q | dO
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sk = smem;
+  unsigned char* sv = sk + KV_BYTES;
+  unsigned char* ring = sv + KV_BYTES;  // [NSTAGE][SLOT], 1024-byte aligned slots
+  // [NSTAGE][lse | delta as copied, then {nl, c2, delta, 0} by query]
+  float* sstat = reinterpret_cast<float*>(ring + NSTAGE * SLOT);
+
+  const int N = prm.N, d = prm.d;
+  const int k0 = blockIdx.x * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const T* qg = static_cast<const T*>(prm.q) + b * prm.q_sb + h * prm.q_sh;
+  const T* kg = static_cast<const T*>(prm.k) + b * prm.k_sb + h * prm.k_sh;
+  const T* vg = static_cast<const T*>(prm.v) + b * prm.v_sb + h * prm.v_sh;
+  const T* og = static_cast<const T*>(prm.dout) + b * prm.o_sb + h * prm.o_sh;
+  const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
+  const long long bh = static_cast<long long>(b) * prm.H + h;
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+  const float kb = tid < WG_ROWS ? key_bias(bias_g, k0 + tid, N) : 0.0f;
+  const bool any = __syncthreads_or(tid < WG_ROWS && kb > -1.0f);
+  const bool full = !__syncthreads_or(kb != 0.0f);
+  if (any) {
+    copy_wg_tile<T, DP, WG_THREADS, WG_ROWS>(sk, kg, prm.k_sn, k0, N, d);
+    copy_wg_tile<T, DP, WG_THREADS, WG_ROWS>(sv, vg, prm.v_sn, k0, N, d);
+    cp_async_commit();
+    const int nq = (N + QT - 1) / QT;
+    auto load_q = [&](int i) {
+      if (i < nq) {
+        unsigned char* sq = ring + (i % NSTAGE) * SLOT;
+        float* st = sstat + (i % NSTAGE) * 6 * QT;
+        copy_wg_tile<T, DP, WG_THREADS, QT>(sq, qg, prm.q_sn, i * QT, N, d);
+        copy_wg_tile<T, DP, WG_THREADS, QT>(sq + Q_BYTES, og, prm.o_sn, i * QT, N, d);
+        if (tid < QT) {
+          const int row = i * QT + tid;
+          const bool in = row < N;
+          cp_async4(st + tid, in ? prm.lse + bh * N + row : prm.lse, in);
+          cp_async4(st + QT + tid, in ? prm.delta + bh * N + row : prm.delta, in);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < NSTAGE - 1; ++i) load_q(i);
+    float kbias[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float bv = key_bias(bias_g, k0 + warp * 16 + g + 8 * r, N);
+      kbias[r] = CLAMPED ? bv : bv * LOG2E;
+    }
+    const uint32_t sk_addr = smem_addr(sk), sv_addr = smem_addr(sv);
+    const int key_row = 64 * (warp / 4);  // this warpgroup's first key of the block
+
+    for (int i = 0; i < nq; ++i) {
+      cp_async_wait<NSTAGE - 2>();
+      unsigned char* sq = ring + (i % NSTAGE) * SLOT;
+      float* st = sstat + (i % NSTAGE) * 6 * QT;
+      float4* qstat = reinterpret_cast<float4*>(st + 2 * QT);
+      if (CLAMPED) scale_wg_tile<T, DP, WG_THREADS, QT>(sq, sq, prm.scale);
+      if (tid < QT) {
+        const float2 r = row_stats(st[tid], i * QT + tid < N);
+        qstat[tid] = make_float4(r.x, r.y, st[QT + tid], 0.0f);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      load_q(i + NSTAGE - 1);
+      const uint32_t sq_addr = smem_addr(sq), so_addr = sq_addr + Q_BYTES;
+
+      // the tile's queries in SUB-column parts (fewer live registers): for
+      // each, s^T = k.qs^T and dp^T = v.dO^T over this warpgroup's 64 keys,
+      // p^T and ds^T, then dv += p^T.dO and dk += ds^T.qs (K4: ds^T.q) with
+      // p^T and ds^T from registers
+#pragma unroll 1
+      for (int part = 0; part < QT / SUB; ++part) {
+        float sc[SUB / 8][4], dpt[SUB / 8][4];
+        float(&sc_flat)[SUB / 2] = reinterpret_cast<float(&)[SUB / 2]>(sc);
+        float(&dp_flat)[SUB / 2] = reinterpret_cast<float(&)[SUB / 2]>(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<T, SUB>(sc_flat, L::k_major(sk_addr, WG_ROWS, key_row, kk),
+                           L::k_major(sq_addr, QT, SUB * part, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<T, SUB>(dp_flat, L::k_major(sv_addr, WG_ROWS, key_row, kk),
+                           L::k_major(so_addr, QT, SUB * part, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc_flat);
+        fence_regs(dp_flat);
+        if (full) {
+          grads_by_key<CLAMPED, true>(sc, dpt, kbias, qstat + SUB * part, prm.scale);
+        } else {
+          grads_by_key<CLAMPED, false>(sc, dpt, kbias, qstat + SUB * part, prm.scale);
+        }
+        uint32_t pa[SUB / 16][4], sa[SUB / 16][4];
+#pragma unroll
+        for (int kt = 0; kt < SUB / 16; ++kt) {
+          pack_a<T>(pa[kt], sc, kt);
+          pack_a<T>(sa[kt], dpt, kt);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < SUB / 16; ++kt) {
+          WgmmaRS<T, DP>::run(dv, pa[kt], L::mn_major(so_addr, SUB / 16 * part + kt));
+        }
+#pragma unroll
+        for (int kt = 0; kt < SUB / 16; ++kt) {
+          WgmmaRS<T, DP>::run(dk, sa[kt], L::mn_major(sq_addr, SUB / 16 * part + kt));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(sa);
+      }
+    }
+    cp_async_wait_all();
+  }
+
+  T* dkg = static_cast<T*>(prm.dk) + b * prm.dk_sb + h * prm.dk_sh;
+  T* dvg = static_cast<T*>(prm.dv) + b * prm.dv_sb + h * prm.dv_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key >= N) continue;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      const int c = dt * 8 + 2 * t;
+      if (c < d) {
+        *reinterpret_cast<uint32_t*>(dkg + key * prm.dk_sn + c) =
+            Mma<T>::pack(dk[4 * dt + 2 * r], dk[4 * dt + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvg + key * prm.dv_sn + c) =
+            Mma<T>::pack(dv[4 * dt + 2 * r], dv[4 * dt + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// pass 2 on wgmma: dq of 128 queries (64 a warpgroup) over the block's
+// listed key tiles. S = Qs.K^T and dP = dO.V^T are SS; dQ += dS.Ks takes dS
+// from registers and Ks as the MN-major B operand.
+template <typename T, bool CLAMPED, int DP>
+__global__ void __launch_bounds__(WG_THREADS, DP <= 32 ? 3 : 2)
+attn_bwd_dq_wgmma_kernel(const Params prm) {
+  using L = TileLayout<DP>;
+  // keys a part of the tile (see the loop): 32 at d <= 32, so that three
+  // blocks fit a SM
+  constexpr int SUB = DP <= 32 ? 32 : 64;
+  constexpr int KT = KEY_TILE, Q_BYTES = WG_ROWS * DP * 2, K_BYTES = KT * DP * 2;
+  constexpr int TILES = CLAMPED ? 3 : 2;  // K, V and (K2) ks = T(k * scale)
+  constexpr int SLOT = TILES * K_BYTES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sq = smem;
+  unsigned char* so = sq + Q_BYTES;
+  unsigned char* ring = so + Q_BYTES;
+  float* sbias = reinterpret_cast<float*>(ring + NSTAGE * SLOT);  // [NSTAGE][KT]
+  int* list = reinterpret_cast<int*>(sbias + NSTAGE * KT);
+
+  const int N = prm.N, d = prm.d;
+  const int q0 = blockIdx.x * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const T* qg = static_cast<const T*>(prm.q) + b * prm.q_sb + h * prm.q_sh;
+  const T* kg = static_cast<const T*>(prm.k) + b * prm.k_sb + h * prm.k_sh;
+  const T* vg = static_cast<const T*>(prm.v) + b * prm.v_sb + h * prm.v_sh;
+  const T* og = static_cast<const T*>(prm.dout) + b * prm.o_sb + h * prm.o_sh;
+  const float* bias_g = prm.bias ? prm.bias + b * prm.bias_sb : nullptr;
+  const long long bh = static_cast<long long>(b) * prm.H + h;
+
+  copy_wg_tile<T, DP, WG_THREADS, WG_ROWS>(sq, qg, prm.q_sn, q0, N, d);
+  copy_wg_tile<T, DP, WG_THREADS, WG_ROWS>(so, og, prm.o_sn, q0, N, d);
+  cp_async_commit();
+  const int ntiles = list_key_tiles<WG_THREADS>(bias_g, N, list);
+
+  auto load_kv = [&](int i) {
+    if (i < ntiles) {
+      const int e = list[i], k0 = (e >> 1) * KT, slot = i % NSTAGE;
+      unsigned char* sk = ring + slot * SLOT;
+      copy_wg_tile<T, DP, WG_THREADS, KT>(sk, kg, prm.k_sn, k0, N, d);
+      copy_wg_tile<T, DP, WG_THREADS, KT>(sk + K_BYTES, vg, prm.v_sn, k0, N, d);
+      if (bias_g && !(e & 1) && tid < KT) {
+        const bool in = k0 + tid < N;
+        cp_async4(sbias + slot * KT + tid, in ? bias_g + k0 + tid : bias_g, in);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) load_kv(i);
+
+  float2 stat[2];
+  float delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    stat[r] = row_stats(row < N ? prm.lse[bh * N + row] : 0.0f, row < N);
+    delta[r] = row < N ? prm.delta[bh * N + row] : 0.0f;
+  }
+  cp_async_wait<NSTAGE - 1>();  // the q and dO tiles (this thread's copies)
+  if (CLAMPED) scale_wg_tile<T, DP, WG_THREADS, WG_ROWS>(sq, sq, prm.scale);  // qs, once
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+  const uint32_t sq_addr = smem_addr(sq), so_addr = smem_addr(so);
+  const int q_row = 64 * (warp / 4);  // this warpgroup's first query of the block
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<NSTAGE - 2>();
+    const int e = list[i], k0 = (e >> 1) * KT, slot = i % NSTAGE;
+    unsigned char* sk = ring + slot * SLOT;
+    float* sb = sbias + slot * KT;
+    if (CLAMPED) scale_wg_tile<T, DP, WG_THREADS, KT>(sk + 2 * K_BYTES, sk, prm.scale);
+    if (!(e & 1) && tid < KT) {
+      const float bv = k0 + tid >= N ? NEG_BIAS : bias_g ? sb[tid] : 0.0f;
+      sb[tid] = CLAMPED ? bv : bv * LOG2E;
+    }
+    fence_proxy_async();
+    __syncthreads();
+    load_kv(i + NSTAGE - 1);
+    const uint32_t sk_addr = smem_addr(sk), sv_addr = sk_addr + K_BYTES;
+
+    const uint32_t kb_addr = CLAMPED ? sk_addr + 2 * K_BYTES : sk_addr;  // ks (K4: k)
+    // the tile's keys in SUB-row parts: s = qs.k^T and dp = dO.v^T over this
+    // warpgroup's 64 queries, ds, then dq += ds.ks with ds from registers
+#pragma unroll 1
+    for (int part = 0; part < KT / SUB; ++part) {
+      float s[SUB / 8][4], dp[SUB / 8][4];
+      float(&s_flat)[SUB / 2] = reinterpret_cast<float(&)[SUB / 2]>(s);
+      float(&dp_flat)[SUB / 2] = reinterpret_cast<float(&)[SUB / 2]>(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<T, SUB>(s_flat, L::k_major(sq_addr, WG_ROWS, q_row, kk),
+                         L::k_major(sk_addr, KT, SUB * part, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<T, SUB>(dp_flat, L::k_major(so_addr, WG_ROWS, q_row, kk),
+                         L::k_major(sv_addr, KT, SUB * part, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_flat);
+      fence_regs(dp_flat);
+      if (e & 1) {
+        grads_by_query<CLAMPED, true>(s, dp, sb + SUB * part, stat, delta, prm.scale);
+      } else {
+        grads_by_query<CLAMPED, false>(s, dp, sb + SUB * part, stat, delta, prm.scale);
+      }
+      uint32_t sa[SUB / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < SUB / 16; ++kt) pack_a<T>(sa[kt], dp, kt);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < SUB / 16; ++kt) {
+        WgmmaRS<T, DP>::run(dq, sa[kt], L::mn_major(kb_addr, SUB / 16 * part + kt));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(sa);
+    }
+  }
+  cp_async_wait_all();
+
+  T* dqg = static_cast<T*>(prm.dq) + b * prm.dq_sb + h * prm.dq_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      const int c = dt * 8 + 2 * t;
+      if (c < d) {
+        *reinterpret_cast<uint32_t*>(dqg + row * prm.dq_sn + c) =
+            Mma<T>::pack(dq[4 * dt + 2 * r], dq[4 * dt + 2 * r + 1]);
       }
     }
   }
@@ -725,54 +1079,44 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_f32_kernel(const Params 
 
 dim3 grid_of(const Params& p, int rows) { return dim3((p.N + rows - 1) / rows, p.H, p.B); }
 
-// the card's SM count (device 0 of the process's current device, read once)
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-template <typename T, bool CLAMPED, int DK, int DO, int NW>
-cudaError_t launch_passes(const Params& p, cudaStream_t stream) {
-  using G = Geo<DK, NW>;
-  constexpr int QT = DK <= 32 || (DK <= 64 && NW == 4) ? 64 : 32;
+template <typename T, bool CLAMPED, int DK>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  using G = Geo<DK>;
+  constexpr int QT = 32;
   const size_t smem1 = sizeof(T) * (2 * G::ROWS + NSTAGE * 2 * QT) * G::LD +
                        sizeof(float) * NSTAGE * 6 * QT;
-  cudaError_t err = launch_kernel(attn_bwd_dkdv_kernel<T, CLAMPED, DK, DO, NW, QT>,
-                                  grid_of(p, G::ROWS), smem1, p, stream, G::THREADS);
+  cudaError_t err = launch_kernel(attn_bwd_dkdv_kernel<T, CLAMPED, DK>, grid_of(p, G::ROWS),
+                                  smem1, p, stream);
   if (err != cudaSuccess) return err;
-  constexpr int STAGES = dq_stages<CLAMPED, DK, NW>();
+  constexpr int STAGES = dq_stages<CLAMPED, DK>();
   const int ntiles = (p.N + KEY_TILE - 1) / KEY_TILE;
   const size_t smem2 = sizeof(T) * (2 * G::ROWS + STAGES * (CLAMPED ? 3 : 2) * KEY_TILE) * G::LD +
                        sizeof(float) * STAGES * KEY_TILE + sizeof(int) * ntiles;
-  return launch_kernel(attn_bwd_dq_kernel<T, CLAMPED, DK, DO, NW>, grid_of(p, G::ROWS), smem2,
-                       p, stream, G::THREADS);
+  return launch_kernel(attn_bwd_dq_kernel<T, CLAMPED, DK>, grid_of(p, G::ROWS), smem2, p, stream);
 }
 
-// 128 rows a block (8 warps: each streamed tile feeds twice the rows) at
-// DK <= 64, where registers allow, when that grid still has 4 blocks a SM;
-// else 64 rows, so that a small grid spreads over more SMs
-template <typename T, bool CLAMPED, int DK, int DO>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  if constexpr (DK <= 64) {
-    const long long wide = static_cast<long long>(p.B) * p.H * ((p.N + 127) / 128);
-    if (wide >= 4LL * sm_count()) return launch_passes<T, CLAMPED, DK, DO, 8>(p, stream);
-  }
-  return launch_passes<T, CLAMPED, DK, DO, 4>(p, stream);
+template <typename T, bool CLAMPED, int DP>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  // + 1024: the kernels align their tiles to 1024 bytes (the swizzle's period)
+  const size_t smem1 = 2 * (2 * WG_ROWS + NSTAGE * 2 * 64) * DP + sizeof(float) * NSTAGE * 6 * 64 +
+                       1024;
+  cudaError_t err = launch_kernel(attn_bwd_dkdv_wgmma_kernel<T, CLAMPED, DP>,
+                                  grid_of(p, WG_ROWS), smem1, p, stream, WG_THREADS);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (p.N + KEY_TILE - 1) / KEY_TILE;
+  const size_t smem2 = 2 * (2 * WG_ROWS + NSTAGE * (CLAMPED ? 3 : 2) * KEY_TILE) * DP +
+                       sizeof(float) * NSTAGE * KEY_TILE + sizeof(int) * ntiles + 1024;
+  return launch_kernel(attn_bwd_dq_wgmma_kernel<T, CLAMPED, DP>, grid_of(p, WG_ROWS), smem2, p,
+                       stream, WG_THREADS);
 }
 
 template <typename T, bool CLAMPED>
 cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
-  if (p.d <= 24) return launch_mma<T, CLAMPED, 32, 24>(p, stream);
-  if (p.d <= 32) return launch_mma<T, CLAMPED, 32, 32>(p, stream);
-  if (p.d <= 64) return launch_mma<T, CLAMPED, 64, 64>(p, stream);
-  if (p.d <= 80) return launch_mma<T, CLAMPED, 80, 80>(p, stream);
-  if (p.d <= 96) return launch_mma<T, CLAMPED, 96, 96>(p, stream);
-  return launch_mma<T, CLAMPED, 128, 128>(p, stream);
+  if (p.d <= 32) return launch_wgmma<T, CLAMPED, 32>(p, stream);
+  if (p.d <= 64) return launch_wgmma<T, CLAMPED, 64>(p, stream);
+  if (p.d <= 80) return launch_mma<T, CLAMPED, 80>(p, stream);
+  if (p.d <= 96) return launch_mma<T, CLAMPED, 96>(p, stream);
+  return launch_mma<T, CLAMPED, 128>(p, stream);
 }
 
 template <bool CLAMPED>

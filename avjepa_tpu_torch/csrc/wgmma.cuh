@@ -4,6 +4,7 @@
 // f32 accumulators:
 //   WgmmaSS<T>::n64:  d[32] (+)= A (64 x 16, shared) . B (64 x 16, shared,
 //                     K-major)^T                     S = Q . K^T
+//   WgmmaSS<T>::n32:  the same with 32 rows of B, d[16]
 //   WgmmaRS<T, N>::run: d[N/2] += A (64 x 16, registers) . B (16 x N, shared,
 //                     MN-major: the transpose flag)  O += P . V
 // Accumulator layout of m64nNk16 (thread = 32 * warp + 4 * g + t): d[4j],
@@ -107,6 +108,19 @@ template <typename T> struct WgmmaSS;
 template <typename T, int N> struct WgmmaRS;
 
 template <> struct WgmmaSS<__nv_bfloat16> {
+  // d (+)= A . B^T, m64n32k16 (B: 32 rows)
+  static __device__ __forceinline__ void n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
   // d (+)= A . B^T, m64n64k16; accumulate == 0 overwrites d
   static __device__ __forceinline__ void n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
@@ -181,6 +195,19 @@ template <> struct WgmmaRS<__nv_bfloat16, 128> {
 };
 
 template <> struct WgmmaSS<__half> {
+  // d (+)= A . B^T, m64n32k16 (B: 32 rows)
+  static __device__ __forceinline__ void n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
   // d (+)= A . B^T, m64n64k16; accumulate == 0 overwrites d
   static __device__ __forceinline__ void n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {

@@ -13,10 +13,13 @@ exits non-zero:
      kernels in bf16, f16 and f32 at the serving shapes (head_dim 24, 64 and
      80, ragged N, an empty batch row), with their registers and spills from
      the build log; the backward kernels in bf16 and f32 at the training
-     slice's shapes (with sentinel tails, an empty batch row, ragged N and
-     saturated logits); then each kernel's time beside its plain version's,
-     one PyTorch library call's (scaled_dot_product_attention, forward or
-     backward) and its bound;
+     slice's shapes and at head_dim 24, 64, 80 and 128, N = 4608, with the
+     step's prefix masks, sentinel tails, an empty batch row, ragged N and
+     saturated logits, and three runs of each giving the same bits; then
+     each kernel's time (median of 5 rounds) beside its plain version's, one
+     PyTorch library call's (scaled_dot_product_attention, forward or
+     backward), its bound and, for the backward kernels, the floor of their
+     exponentials;
   4. the extract app through its CLI entry: ViT-L/16 AV, bf16, batch 24,
      96 synthetic clips of 16x224^2 video + 128x192 mel (1664 tokens), from
      a random encoder; then vit_tiny (3 heads, the classic kernel) for one
@@ -30,7 +33,7 @@ exits non-zero:
   6. one ViT-L step at batch 4 through the kernels against the same step
      through the plain attention (loss and grad norms);
   7. the ViT-L step on a resident batch of 24 (CUDA events, peak memory,
-     a torch.profiler window), with remat and without;
+     a torch.profiler window), with remat (three rounds) and without;
   8. the LayerNorm kernels K5/K6 through FastLayerNorm, forward and
      backward, against their plain versions in bf16 and f32 at [39936,
      1024], [67584, 384] and a ragged [1003, 192]; two backward runs give

@@ -14,8 +14,9 @@ with x = s (+ bias) and the clamp test x < 80 on the natural-units logit,
 K4 p = 2^(s * (scale * log2e) + nl) in one FMA (bias * log2e added in a
 partial tile). qs = T(q * scale) and ks = T(k * scale) are rounded once
 (K2); p and ds are rounded to the input type T before their products; sums
-are f32. S and dP reduce over d zero-padded to a multiple of 16, and dK,
-dV and dQ accumulate over d rounded up to 8 (d = 24 at n = 24), cut to d.
+are f32. Every product runs over d zero-padded as the kernels pad it (to
+32 or 64 on the wgmma path at d <= 64, to a multiple of 16 above), and the
+outputs are cut to d.
 Inputs are made with numpy from a seed. Tolerances: f32 1e-5 of max|plain|
 (2^x of a rounded log2-unit logit against exp of the natural one moves p by
 up to ~5e-6 relative near the clamp); bf16 chip_smoke.BWD_REL_TOL, the
@@ -82,7 +83,8 @@ def emulate(q, k, v, dout, lse, delta, bias, scale, clamped):
     """Both passes on [B, H, N, d] tensors of one dtype T: (dq, dk, dv) in T."""
     dt = q.dtype
     b, h, n, d = q.shape
-    dk_pad, do_pad = -(-d // 16) * 16, -(-d // 8) * 8
+    dk_pad = 32 if d <= 32 else 64 if d <= 64 else -(-d // 16) * 16
+    do_pad = dk_pad
     sc = torch.tensor(scale, dtype=F32)
     rnd = lambda x: x.to(dt).float()  # noqa: E731 (rounding to T)
     grads = [torch.zeros((b, h, n, d), dtype=F32) for _ in range(3)]
