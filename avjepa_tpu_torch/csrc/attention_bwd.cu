@@ -14,7 +14,8 @@
 //     scale, dk = T(ds)^T.q, dq = T(ds).k, dv = T(p)^T.dO. Key tiles whose
 //     keys are all masked are skipped, as on the TPU.
 // Both: delta = rowsum(dO * O) per head in f32 comes in from outside the
-// kernel ([B, H, N]); lse is the forward's [B, H, N]; every accumulator is
+// two passes ([B, H, N]; avj_attn_delta below computes it, called by the
+// wrappers first); lse is the forward's [B, H, N]; every accumulator is
 // f32, cast once to T at the end. A masked key (bias -1e30) or a key past N
 // gets p = 0 exactly, so its dk and dv are 0; a query row past N gets
 // lse = +1e30, so it adds nothing. An all-masked key tile is skipped in both
@@ -1150,6 +1151,57 @@ int dispatch(int dtype, const Params& p, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// delta = rowsum(dO * O) per head, the softmax-correction term both passes
+// read: one thread per (batch, head, query row), threads of a warp on
+// neighbouring heads of one row (so a packed row is read contiguously), f32
+// products and sum; T = float reads 4-byte elements, 16-bit types 16-byte
+// chunks (d % 8 == 0, aligned, as the 16-bit kernels require)
+// ---------------------------------------------------------------------------
+
+struct DeltaParams {
+  const void* out;
+  const void* dout;
+  long long o_sb, o_sh, o_sn;
+  long long d_sb, d_sh, d_sn;
+  float* delta;  // [B, H, N]
+  int B, H, N, d;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(256) attn_delta_kernel(const DeltaParams prm) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(prm.B) * prm.N * prm.H) return;
+  const int h = static_cast<int>(i % prm.H), n = static_cast<int>((i / prm.H) % prm.N);
+  const int b = static_cast<int>(i / (static_cast<long long>(prm.H) * prm.N));
+  const T* o = static_cast<const T*>(prm.out) + b * prm.o_sb + h * prm.o_sh + n * prm.o_sn;
+  const T* g = static_cast<const T*>(prm.dout) + b * prm.d_sb + h * prm.d_sh + n * prm.d_sn;
+  float acc = 0.0f;
+  if constexpr (sizeof(T) == 4) {
+    for (int c = 0; c < prm.d; ++c) acc = fmaf(g[c], o[c], acc);
+  } else {
+    for (int c = 0; c < prm.d; c += 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(o + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(g + c);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = Mma<T>::unpack(xs[j]), e = Mma<T>::unpack(ys[j]);
+        acc = fmaf(e.x, a.x, acc);
+        acc = fmaf(e.y, a.y, acc);
+      }
+    }
+  }
+  prm.delta[(static_cast<long long>(b) * prm.H + h) * prm.N + n] = acc;
+}
+
+template <typename T>
+cudaError_t launch_delta(const DeltaParams& p, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(p.B) * p.N * p.H;
+  const dim3 grid(static_cast<unsigned>((rows + 255) / 256));
+  return launch_kernel(attn_delta_kernel<T>, grid, 0, p, stream, 256);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1221,6 +1273,26 @@ int avj_attn_bwd(int dtype,
   p.B = B; p.H = H; p.N = N; p.d = d;
   p.scale = scale;
   return dispatch<false>(dtype, p, stream);
+}
+
+// delta [B, H, N] f32 contiguous = rowsum(dout * out) over d per head, from
+// out and dout with the given element strides (unit stride along d); the
+// backward wrappers call it before avj_attn_bwd_packed / avj_attn_bwd.
+int avj_attn_delta(int dtype, const void* out, long long o_sb, long long o_sh, long long o_sn,
+                   const void* dout, long long d_sb, long long d_sh, long long d_sn,
+                   float* delta, int B, int H, int N, int d, void* stream) {
+  if (d < 1 || d > MAX_D || N < 1 || B < 1 || H < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DeltaParams p{out, dout, o_sb, o_sh, o_sn, d_sb, d_sh, d_sn, delta, B, H, N, d};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch_delta<float>(p, s));
+  if (d % 8 || !aligned16(out, o_sb, o_sh, o_sn) || !aligned16(dout, d_sb, d_sh, d_sn)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (dtype == 1) return static_cast<int>(launch_delta<__half>(p, s));
+  if (dtype == 2) return static_cast<int>(launch_delta<__nv_bfloat16>(p, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -71,6 +71,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32, f32, ptr,
     ]
     lib.avj_attn_bwd.restype = i32
+    lib.avj_attn_delta.argtypes = [i32, ptr, i64, i64, i64, ptr, i64, i64, i64, ptr,
+                                   i32, i32, i32, i32, ptr]
+    lib.avj_attn_delta.restype = i32
     lib.avj_ln_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i32, f32, ptr]
     lib.avj_ln_fwd.restype = i32
     lib.avj_ln_bwd_blocks.argtypes = [i64]

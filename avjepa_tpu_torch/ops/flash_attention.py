@@ -256,6 +256,31 @@ def _launch_args(bias: torch.Tensor | None) -> tuple[int | None, int]:
     return (bias.data_ptr(), bias.stride(0)) if bias is not None else (None, 0)
 
 
+def _delta_kernel(lib, out: torch.Tensor, dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """attention_delta on the card (avj_attn_delta): f32 [B, H, N] from
+    [B, N, C] or [B, H, N, d] out and dout, one kernel in place of torch's
+    casts, product, sum and transpose."""
+    out = out.contiguous()
+    if out.shape != dout.shape or out.dtype != dout.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match dout")
+    if out.dim() == 4:
+        b, h, n, d = out.shape
+        o_strides = (out.stride(0), out.stride(1), out.stride(2))
+        d_strides = (dout.stride(0), dout.stride(1), dout.stride(2))
+    else:
+        b, n, c = out.shape
+        h, d = num_heads, c // num_heads
+        o_strides = (out.stride(0), d, out.stride(1))
+        d_strides = (dout.stride(0), d, dout.stride(1))
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=out.device)
+    code = lib.avj_attn_delta(
+        _DTYPE_CODES[out.dtype], out.data_ptr(), *o_strides, dout.data_ptr(), *d_strides,
+        delta.data_ptr(), b, h, n, d, torch.cuda.current_stream().cuda_stream,
+    )
+    check(lib, code, "attn_delta")
+    return delta
+
+
 def flash_attention_qkv_fwd(
     qkv: torch.Tensor,
     num_heads: int,
@@ -310,11 +335,11 @@ def flash_attention_qkv_bwd(
     if dout.shape != out.shape or dout.dtype != qkv.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match the output")
     bias = _key_bias(key_mask, b, n)
-    delta = attention_delta(out, dout, num_heads)
     lse = lse.contiguous()
     dqkv = torch.empty((b, n, c3), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     with torch.cuda.device(qkv.device):
+        delta = _delta_kernel(lib, out, dout, num_heads)
         code = lib.avj_attn_bwd_packed(
             _DTYPE_CODES[qkv.dtype], qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
             dout.data_ptr(), dout.stride(0), dout.stride(1),
@@ -418,11 +443,11 @@ def flash_attention_bwd(
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match q")
     bias = _key_bias(key_mask, b, n)
-    delta = attention_delta(out, dout, h)
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
     lib = load_library()
     with torch.cuda.device(q.device):
+        delta = _delta_kernel(lib, out, dout, h)
         code = lib.avj_attn_bwd(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),

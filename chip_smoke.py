@@ -89,6 +89,10 @@ TOL = {"bfloat16": (2e-2, 1e-3), "float16": (1e-2, 1e-3), "float32": (1e-4, 1e-4
 # bf16 ulp (2^-8 relative) and an output by an ulp: 2e-2. f32: sums over up to
 # 1664 keys in other orders, and ds = p * (dp - delta) cancels: 1e-4.
 BWD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the backward wrappers' delta kernel against torch's attention_delta,
+# relative to max|plain|: both sum d <= 128 exact f32 products in f32, in
+# other orders
+DELTA_REL_TOL = 1e-5
 # H100 SXM dense bf16 tensor-core peak and HBM3 rate (NVIDIA's data sheet), for
 # the bound of each kernel (the larger of its operations and its bytes over
 # these rates)
@@ -305,6 +309,7 @@ def check_bwd_kernels() -> dict:
     import torch
 
     from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.ops._build import load_library
 
     print("backward kernels' resources (ptxas):")
     print_resources("attn_bwd")
@@ -324,6 +329,15 @@ def check_bwd_kernels() -> dict:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         return max(_max_err(g, w) for g, w in zip(got, want))
+
+    def check_delta(name, dtype, out, dout, h):
+        got = fa._delta_kernel(load_library(), out, dout, h)
+        want = fa.attention_delta(out, dout, h)
+        err = _rel_err(got, want)
+        print(f"  {name} {str(dtype).split('.')[-1]}: max|err|/max|plain| {err:.2e} "
+              f"(tol {DELTA_REL_TOL:g}) {'ok' if err <= DELTA_REL_TOL else 'FAIL'}")
+        if err > DELTA_REL_TOL:
+            raise AssertionError(f"{name} disagrees with attention_delta")
 
     def same_bits(name, run, first):
         again = [run() for _ in range(2)]
@@ -360,6 +374,7 @@ def check_bwd_kernels() -> dict:
             got = run()
             torch.cuda.synchronize()
             want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask)
+            check_delta(f"attn_delta {label}", dtype, out, dout, h)
             c = h * d
             err = compare(f"attn_bwd_packed {label} B={b} N={n} H={h} d={d} mask={kind}", dtype,
                           [got[..., i * c:(i + 1) * c] for i in range(3)],
@@ -419,6 +434,7 @@ def check_bwd_kernels() -> dict:
             got = run()
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask)
+            check_delta(f"attn_delta B={b} H={h} N={n} d={d}", dtype, out, dout, h)
             err = compare(f"attn_bwd B={b} H={h} N={n} d={d} mask={kind}", dtype, got, want)
             if not bool((got[1].transpose(1, 2)[~mask] == 0).all()):
                 raise AssertionError("attn_bwd: masked keys have a dk")
