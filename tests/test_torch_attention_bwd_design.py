@@ -5,10 +5,11 @@ contracts (and are themselves held against the JAX package in
 tests/test_torch_attention_bwd.py).
 
 The emulation follows the kernels' two passes. Pass 1 (dk, dv) walks blocks
-of 64 keys, skips a block whose keys are all masked or past N, adds no bias
-in a "full" block (every key below N with bias exactly 0), and streams the
-query tiles; pass 2 (dq) walks each query tile's list of 64-key tiles with
-the same skip and full rules. Both work in log2 units: nl = -(lse * log2e)
+of keys (64 here; the wgmma kernels take 128, which moves no result, as a
+masked key's p is 0 either way), skips a block whose keys are all masked
+or past N, adds no bias in a "full" block (every key below N with bias
+exactly 0), and streams the query tiles; pass 2 (dq) walks each query
+tile's list of 64-key tiles with the same skip and full rules. Both work in log2 units: nl = -(lse * log2e)
 per query row (-1e30 past N), K2 p = 2^min(x * log2e + nl, 80 * log2e + nl)
 with x = s (+ bias) and the clamp test x < 80 on the natural-units logit,
 K4 p = 2^(s * (scale * log2e) + nl) in one FMA (bias * log2e added in a
