@@ -8,6 +8,13 @@ thread pool, retries a failed decode on a resampled index, calls the mask
 collator once per batch in batch order on its producer thread (as
 ``JepaLoader._assemble`` does), and keeps a bounded queue of batches ahead of
 the consumer.
+
+The evals' exact-validation path is the JAX module's too: with
+``retry_resample=False`` a failed sample is retried on its own index and then
+becomes a ``FetchFailure``; ``exact_val_collate`` replaces it with a good
+sample of the batch and appends a per-row ``ok`` mask, and
+``ShardedSampler.batch_valid_masks`` marks the wrap-padded duplicate rows, so
+top-1 counts each sample once and leaves a failed one out.
 """
 
 from __future__ import annotations
@@ -15,9 +22,21 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+import logging
 from typing import Iterator, Optional
 
 import numpy as np
+
+
+class FetchFailure:
+    """A sample that failed to decode after its retries
+    (``retry_resample=False`` only): the collate leaves its slot out of the
+    metric instead of scoring a substitute."""
+
+    __slots__ = ("idx",)
+
+    def __init__(self, idx: int):
+        self.idx = int(idx)
 
 
 class ShardedSampler:
@@ -73,16 +92,70 @@ class ShardedSampler:
         for i in range(len(shard) // self.batch_size):
             yield shard[i * self.batch_size : (i + 1) * self.batch_size]
 
+    def batch_valid_masks(self) -> Iterator[np.ndarray]:
+        """Per-batch bool masks, False on the rows that shard-level and
+        batch-level wrap padding repeat (in ``__iter__``'s layout: shard
+        element k sits at padded position shard_index + num_shards * k, and
+        positions >= dataset_len are pads). Zip them with the batches so that
+        exact counts score each sample once. Undefined for weighted draws."""
+        if self.weights is not None:
+            raise ValueError("validity is undefined for weighted draws")
+        total = int(np.ceil(self.dataset_len / self.num_shards)) * self.num_shards
+        shard_len = total // self.num_shards
+        valid = (self.shard_index + self.num_shards * np.arange(shard_len)) < self.dataset_len
+        if not self.drop_last and shard_len % self.batch_size:
+            pad = self.batch_size - shard_len % self.batch_size
+            valid = np.concatenate([valid, np.zeros(pad, bool)])
+        for i in range(len(valid) // self.batch_size):
+            yield valid[i * self.batch_size : (i + 1) * self.batch_size]
 
-def fetch_with_retry(dataset, idx: int):
+
+def fetch_with_retry(dataset, idx: int, resample: bool = True):
     """dataset[idx]; a failed decode is retried (10 tries) on a resampled
-    index, as the JAX loader does (the sample then reports that other index)."""
-    for attempt in range(10):
+    index, as the JAX loader does (the sample then reports that other index).
+    With ``resample=False`` it is retried 3 times on the same index, then
+    returned as a ``FetchFailure``."""
+    for attempt in range(10 if resample else 3):
         try:
             return dataset[int(idx)]
         except Exception:  # noqa: BLE001 - any decode failure resamples
-            idx = np.random.default_rng([int(idx), attempt]).integers(0, len(dataset))
+            if resample:
+                idx = np.random.default_rng([int(idx), attempt]).integers(0, len(dataset))
+    if not resample:
+        return FetchFailure(idx)
     raise RuntimeError("persistent decode failure")
+
+
+def exact_val_collate(collate):
+    """Wrap ``collate`` for a ``retry_resample=False`` loader: FetchFailure
+    slots get a copy of a good sample of the batch (the shapes stay fixed)
+    and a per-row ``ok`` mask is appended to the collate's outputs. A batch
+    that failed whole is filled from the last good sample seen, all rows not
+    ok; only a first batch that failed whole raises (no sample to copy)."""
+    last_good = []
+
+    def wrapped(samples):
+        ok = np.asarray([not isinstance(s, FetchFailure) for s in samples], bool)
+        if not ok.all():
+            failed = [s.idx for s in samples if isinstance(s, FetchFailure)]
+            logging.getLogger("avjepa_tpu_torch").warning(
+                f"val decode failure: sample indices {failed} excluded from the metric")
+            if not ok.any():
+                if not last_good:
+                    raise RuntimeError("entire first val batch failed to decode (no shape "
+                                       "donor for an all-False batch); dataset unreadable?")
+                samples = [last_good[0]] * len(samples)
+            else:
+                good = samples[int(np.argmax(ok))]
+                samples = [s if o else good for s, o in zip(samples, ok)]
+        if ok.any():
+            last_good[:] = [samples[int(np.argmax(ok))]]
+        out = collate(samples)
+        if not isinstance(out, tuple):
+            out = (out,)
+        return (*out, ok)
+
+    return wrapped
 
 
 def collate_av(samples) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
@@ -96,17 +169,22 @@ def collate_av(samples) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
 
 
 class BatchLoader:
-    """Iterates collated batches ``(video, audio, labels)``, plus the mask
-    sets ``mask_collator(batch_size)`` when one is given, decoding ahead in
-    ``num_workers`` threads with at most ``prefetch`` batches waiting.
+    """Iterates collated batches (``collate``'s output; by default ``(video,
+    audio, labels)``), plus the mask sets ``mask_collator(batch_size)`` when
+    one is given, decoding ahead in ``num_workers`` threads with at most
+    ``prefetch`` batches waiting. ``retry_resample=False`` hands failed
+    samples to ``collate`` as ``FetchFailure`` (see ``exact_val_collate``).
     ``close()`` stops the pool."""
 
     def __init__(self, dataset, sampler: ShardedSampler, num_workers: int = 4,
-                 prefetch: int = 2, mask_collator=None):
+                 prefetch: int = 2, mask_collator=None, collate=collate_av,
+                 retry_resample: bool = True):
         self.dataset = dataset
         self.sampler = sampler
         self.prefetch = prefetch
         self.mask_collator = mask_collator
+        self.collate = collate
+        self.retry_resample = retry_resample
         self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
 
     def set_epoch(self, epoch: int) -> None:
@@ -119,10 +197,9 @@ class BatchLoader:
         self._pool.shutdown(wait=True, cancel_futures=True)
 
     def _assemble(self, indices: np.ndarray):
-        samples = list(
-            self._pool.map(lambda i: fetch_with_retry(self.dataset, i), indices)
-        )
-        batch = collate_av(samples)
+        samples = list(self._pool.map(
+            lambda i: fetch_with_retry(self.dataset, i, self.retry_resample), indices))
+        batch = self.collate(samples)
         if self.mask_collator is None:
             return batch
         return (*batch, self.mask_collator(len(indices)))

@@ -10,13 +10,14 @@ apps) and the vendored SlowFast crop ops
   interpolates linearly across time) -> horizontal flip p=0.5 ->
   normalize (ImageNet mean/std) -> optional RandomErasing (pixel mode).
 
-AutoAugment (``data_aug.auto_augment``) is not ported yet (see ROADMAP.md).
+AutoAugment (rand-m7-n4-mstd0.5-inc1) is a PIL-op stack in the reference; here
+a numpy implementation of the same op family lives in randaugment.py.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -170,14 +171,15 @@ class VideoTransform:
         self.horizontal_flip = horizontal_flip
         self.reprob = reprob
         self.motion_shift = motion_shift
-        if auto_augment:
-            raise NotImplementedError(
-                "data_aug.auto_augment is not ported to avjepa_tpu_torch yet (see ROADMAP.md)"
-            )
+        self.auto_augment = auto_augment
         self.mean, self.std = normalize
 
     def __call__(self, clip: np.ndarray, rng: np.random.Generator) -> np.ndarray:
         """clip: [T, H, W, 3] uint8 -> [T, crop, crop, 3] f32 normalized."""
+        if self.auto_augment:
+            from avjepa_tpu_torch.data.randaugment import rand_augment_video
+
+            clip = rand_augment_video(clip, rng)
         clip = random_resized_crop(
             clip, self.crop_size, self.scale, self.ratio, rng,
             motion_shift=self.motion_shift,

@@ -1,10 +1,11 @@
 """The JEPA encoder over a (video, audio) token sequence.
 
 Counterpart of ``avjepa_tpu/models/encoder.py``: AV (video tokens, then
-audio tokens) and video-only (``layout.audio_enabled`` False), dense with an
-optional ``[B, N]`` key mask, or compacted to the tokens of ``gather_idx``.
-The blocks are an ``nn.ModuleList`` (the JAX package scans one stacked
-block). Not ported yet: image mode and pos-embed interpolation.
+audio tokens), video-only (``layout.audio_enabled`` False) and image mode
+(``layout.num_frames`` 1: a [B, H, W, C] image, the 2-D patch embed and
+sincos table), dense with an optional ``[B, N]`` key mask, or compacted to
+the tokens of ``gather_idx``. The blocks are an ``nn.ModuleList`` (the JAX
+package scans one stacked block). Not ported yet: pos-embed interpolation.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ class Encoder(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if layout.num_frames <= 1:
-            raise NotImplementedError("image mode is not ported yet (see ROADMAP.md)")
         self.layout = layout
         self.dtype = dtype
         self.remat = remat
@@ -47,8 +46,11 @@ class Encoder(nn.Module):
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         # fixed sincos tables, recomputed from the layout (not in state dicts)
-        vpe = pe.sincos_3d(embed_dim, layout.h_grid, layout.t_grid,
-                           uniform_power=uniform_power)
+        if layout.num_frames > 1:
+            vpe = pe.sincos_3d(embed_dim, layout.h_grid, layout.t_grid,
+                               uniform_power=uniform_power)
+        else:
+            vpe = pe.sincos_2d(embed_dim, layout.h_grid)
         self.register_buffer("pos_embed_v", torch.from_numpy(vpe).float(),
                              persistent=False)
         if layout.audio_enabled:
@@ -63,7 +65,7 @@ class Encoder(nn.Module):
         key_mask: Optional[torch.Tensor] = None,
         gather_idx: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """video [B, T, H, W, 3]; audio [B, Hs, Ws, 1]; key_mask [B, N] bool
+        """video [B, T, H, W, 3] (an image [B, H, W, 3] in image mode); audio [B, Hs, Ws, 1]; key_mask [B, N] bool
         or None (every token valid), over the compacted sequence when
         ``gather_idx`` is given.
 

@@ -86,6 +86,11 @@ def init_predictor_params(predictor: Predictor, seed: int,
     _init_params(predictor, predictor.blocks, seed, zero)
 
 
+def init_classifier_params(classifier: nn.Module, seed: int) -> None:
+    """An ``AttentiveClassifier``'s init (flax's: no per-layer rescale)."""
+    _init_params(classifier, nn.ModuleList(), seed)
+
+
 def make_encoder(
     model_name: str,
     layout: TokenLayout,

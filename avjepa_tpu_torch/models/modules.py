@@ -1,10 +1,11 @@
-"""Transformer primitives: Mlp, Attention, the pre-LN Block and
-FastLayerNorm.
+"""Transformer primitives: Mlp, Attention, the pre-LN Block, CrossAttention
+and CrossAttentionBlock (the attentive classifier's), and FastLayerNorm.
 
 Counterpart of ``avjepa_tpu/models/modules.py``. Parameters are f32
 ``nn.Linear`` / ``nn.LayerNorm`` modules named with the reference state-dict
 keys (``attn.qkv``, ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``, ``norm1``,
-``norm2``). Compute follows the block's dtype, as flax's ``dtype=`` does:
+``norm2``; ``xattn.q``, ``xattn.kv``, ``xattn.proj`` for cross attention).
+Compute follows the block's dtype, as flax's ``dtype=`` does:
 LayerNorm takes its statistics in f32 and casts to it, linear layers cast
 their f32 weights to their input's dtype; the residual stream keeps the
 dtype it comes in with (f32 where the diffusion predictor's noised targets
@@ -128,3 +129,50 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
         x = x + self.attn(layer_norm(self.norm1, x, self.dtype), key_mask=key_mask)
         return x + self.mlp(layer_norm(self.norm2, x, self.dtype))
+
+
+class CrossAttention(nn.Module):
+    """Query tokens attend over a context sequence (JAX ``CrossAttention``,
+    ``avjepa_tpu/models/modules.py:180-216``): ``q`` and ``kv`` are separate
+    linears, the plain masked attention, then ``proj``; computed in ``dtype``
+    (None: the query's)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, q: torch.Tensor, x: torch.Tensor,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.dtype or q.dtype
+        b, nq, c = q.shape
+        nk, h = x.shape[1], self.num_heads
+        qp = linear(self.q, q.to(dtype)).reshape(b, nq, h, c // h).transpose(1, 2)
+        k, v = linear(self.kv, x.to(dtype)).reshape(b, nk, 2, h, c // h).permute(
+            2, 0, 3, 1, 4).unbind(0)  # [B, H, Nk, Dh] each
+        out = attention(qp, k, v, key_mask=key_mask)
+        return linear(self.proj, out.transpose(1, 2).reshape(b, nq, c))
+
+
+class CrossAttentionBlock(nn.Module):
+    """JAX ``CrossAttentionBlock`` (``modules.py:219-241``): ``norm1`` is
+    applied to the context ``x``, not to the queries; then the residual,
+    ``norm2`` and the MLP (exact GELU)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.xattn = CrossAttention(dim, num_heads, qkv_bias, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, q: torch.Tensor, x: torch.Tensor,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q = q + self.xattn(q, layer_norm(self.norm1, x, self.dtype), key_mask)
+        return q + self.mlp(layer_norm(self.norm2, q, self.dtype))

@@ -1,10 +1,11 @@
 """Patchification: a reshape into patches, then one matmul.
 
 Counterpart of ``avjepa_tpu/models/patch_embed.py``. Raster order is (t, h, w)
-for video and (h, w) for audio; each patch is flattened row-major as
-(t, kh, kw, C). The weights keep the reference's conv layout
-(``patch_embed.proj.weight`` [D, C, t, kh, kw], ``patch_embed.audio_proj.weight``
-[D, 1, kh, kw]), so reference state dicts load with no mapping code.
+for video and (h, w) for images and audio; each patch is flattened row-major
+as (t, kh, kw, C). The weights keep the reference's conv layout
+(``patch_embed.proj.weight`` [D, C, t, kh, kw], or [D, C, kh, kw] in image
+mode; ``patch_embed.audio_proj.weight`` [D, 1, kh, kw]), so reference state
+dicts load with no mapping code.
 """
 
 from __future__ import annotations
@@ -50,10 +51,10 @@ class VideoPatchEmbed3D(nn.Module):
         return F.linear(xf, w.to(xf.dtype), self.bias.to(xf.dtype))
 
 
-class AudioPatchEmbed(nn.Module):
-    """Spectrogram embed: [B, Hs, Ws, 1] -> [B, Hs'*Ws', D]."""
+class ImagePatchEmbed(nn.Module):
+    """Patch embed: [B, H, W, C] -> [B, H'*W', D] (image mode)."""
 
-    def __init__(self, embed_dim: int, patch_size: int = 16, in_chans: int = 1):
+    def __init__(self, embed_dim: int, patch_size: int = 16, in_chans: int = 3):
         super().__init__()
         self.patch_size = patch_size
         self.weight = nn.Parameter(torch.empty(embed_dim, in_chans, patch_size, patch_size))
@@ -65,13 +66,24 @@ class AudioPatchEmbed(nn.Module):
         return F.linear(yf, w.to(yf.dtype), self.bias.to(yf.dtype))
 
 
+class AudioPatchEmbed(ImagePatchEmbed):
+    """Spectrogram embed: [B, Hs, Ws, 1] -> [B, Hs'*Ws', D]."""
+
+    def __init__(self, embed_dim: int, patch_size: int = 16, in_chans: int = 1):
+        super().__init__(embed_dim, patch_size, in_chans)
+
+
 class AVPatchEmbed(nn.Module):
-    """The reference's ``patch_embed`` module: ``proj`` (video) and, when
-    the layout has audio, ``audio_proj``."""
+    """The reference's ``patch_embed`` module: ``proj`` (video, or an image
+    when the layout has one frame) and, when the layout has audio,
+    ``audio_proj``."""
 
     def __init__(self, layout: TokenLayout, embed_dim: int):
         super().__init__()
-        self.proj = VideoPatchEmbed3D(embed_dim, layout.patch_size, layout.tubelet_size)
+        if layout.num_frames > 1:
+            self.proj = VideoPatchEmbed3D(embed_dim, layout.patch_size, layout.tubelet_size)
+        else:
+            self.proj = ImagePatchEmbed(embed_dim, layout.patch_size)
         self.audio_proj = (
             AudioPatchEmbed(embed_dim, layout.patch_size) if layout.audio_enabled else None
         )

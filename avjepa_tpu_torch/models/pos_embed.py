@@ -24,6 +24,11 @@ def sincos_1d_from_grid(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     return np.concatenate([np.sin(out), np.cos(out)], axis=1)
 
 
+def sincos_1d(embed_dim: int, grid_size: int) -> np.ndarray:
+    """[grid_size, embed_dim] for positions 0..grid_size-1."""
+    return sincos_1d_from_grid(embed_dim, np.arange(grid_size, dtype=np.float64))
+
+
 def sincos_2d_rect(embed_dim: int, grid_h: int, grid_w: int) -> np.ndarray:
     """Rectangular grid (the audio spectrogram raster): the first half of the
     channels encodes the row, the second half the column."""

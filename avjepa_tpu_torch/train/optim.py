@@ -8,7 +8,9 @@ package's ``wd_mask`` decays (``avjepa_tpu/train/optim.py:85-93``): those
 of two or more dimensions whose names hold no 'bias', and the block
 LayerNorm weights, which are 2-D ``[L, D]`` leaves of its depth-stacked
 blocks (the PyTorch reference, app/avjepa/utils.py:245-263, decays no
-LayerNorm weight); lr and wd are set on its groups every step.
+LayerNorm weight); lr and wd are set on its groups every step. The
+classification evals' classifier is not depth-stacked in JAX either, so its
+groups follow ``wd_mask`` as written (``plain_decays``).
 """
 
 from __future__ import annotations
@@ -80,14 +82,22 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return (p.ndim >= 2 or _BLOCK_NORM.search(name) is not None) and "bias" not in name
 
 
+def plain_decays(name: str, p: torch.Tensor) -> bool:
+    """JAX ``wd_mask`` on modules that are not depth-stacked (the attentive
+    classifier's ``blocks_{i}``): non-bias params of 2+ dimensions only, so
+    no LayerNorm weight decays and the 3-D query tokens do."""
+    return p.ndim >= 2 and "bias" not in name
+
+
 def make_optimizer(models: Iterable[nn.Module], betas=(0.9, 0.999),
-                   eps: float = 1e-8) -> torch.optim.AdamW:
+                   eps: float = 1e-8, rule=decays) -> torch.optim.AdamW:
     """One AdamW over the models' parameters in two groups, with and without
-    weight decay; lr and wd are set by ``set_lr_wd`` before every step."""
+    weight decay as ``rule(name, param)`` says; lr and wd are set by
+    ``set_lr_wd`` before every step."""
     decay, no_decay = [], []
     for model in models:
         for name, p in model.named_parameters():
-            (decay if decays(name, p) else no_decay).append(p)
+            (decay if rule(name, p) else no_decay).append(p)
     groups = [{"params": decay, "weight_decay": 0.0, "decay": True},
               {"params": no_decay, "weight_decay": 0.0, "decay": False}]
     return torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas), eps=eps)

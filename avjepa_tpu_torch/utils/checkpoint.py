@@ -3,10 +3,12 @@
 The port's modules carry the reference state-dict keys, so the flax bridge is
 the JAX package's own mapping (the port's copy, ``utils/torch_import.py``)
 and adds no mapping code:
-- ``encoder_from_jax_params`` / ``predictor_from_jax_params``: flax params
-  (as numpy arrays) -> ``*_params_to_state_dict`` ->
-  ``load_state_dict(strict=True)``;
+- ``encoder_from_jax_params`` / ``predictor_from_jax_params`` /
+  ``classifier_from_jax_params``: flax params (as numpy arrays) ->
+  ``*_params_to_state_dict`` -> ``load_state_dict(strict=True)``;
 - ``load_encoder_checkpoint``: one encoder of a reference-layout ``.pth.tar``;
+- ``merge_target_encoder``: the classification evals' leaf-by-leaf,
+  shape-tolerant merge of such an encoder into a (video-only) encoder;
 - ``save_train_state`` / ``load_train_state``: the pretrain app's state as the
   reference writes it (app/avjepa/train.py:332-350): ``encoder``,
   ``predictor``, ``target_encoder``, ``opt``, ``epoch``, ``loss``,
@@ -15,19 +17,26 @@ and adds no mapping code:
   such a file, for the avprediction app and the av_prediction eval;
 - ``save_probe_state`` / ``load_probe_state``: the reconstruction probe, its
   AdamW state and its step, at ``<folder>/<tag>-probe-latest.pth.tar``
-  (the JAX package keeps an Orbax ``<tag>-probe-ckpt`` directory).
+  (the JAX package keeps an Orbax ``<tag>-probe-ckpt`` directory);
+- ``save_classifier_state`` / ``load_classifier_state``: a classification
+  eval's attentive classifier, its AdamW state, step and epoch, at
+  ``<folder>/<tag>-cls-latest.pth.tar`` (JAX: ``<tag>-cls-ckpt``).
 An Orbax checkpoint directory cannot be read without JAX and is refused.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from avjepa_tpu_torch.utils.logging import get_logger
 from avjepa_tpu_torch.utils.torch_import import (
+    classifier_params_to_state_dict,
     encoder_params_to_state_dict,
     predictor_params_to_state_dict,
     strip_prefixes,
@@ -47,6 +56,12 @@ def encoder_from_jax_params(module: nn.Module, params: dict) -> nn.Module:
 def predictor_from_jax_params(module: nn.Module, params: dict) -> nn.Module:
     """Load flax ``Predictor`` params (mask-token form) into ``module``."""
     module.load_state_dict(_tensors(predictor_params_to_state_dict(params)), strict=True)
+    return module
+
+
+def classifier_from_jax_params(module: nn.Module, params: dict) -> nn.Module:
+    """Load flax ``AttentiveClassifier`` params into ``module``."""
+    module.load_state_dict(_tensors(classifier_params_to_state_dict(params)), strict=True)
     return module
 
 
@@ -141,3 +156,88 @@ def load_probe_state(path: str, state) -> None:
     state.probe.load_state_dict(ckpt["probe"], strict=True)
     state.optimizer.load_state_dict(ckpt["opt"])
     state.step = int(ckpt["step"])
+
+
+def merge_target_encoder(path: str, encoder: nn.Module, strict: bool = True,
+                         prefer: str = "target_encoder") -> Optional[dict]:
+    """Load entry ``prefer`` of the pretrain ``.pth.tar`` at ``path`` into
+    ``encoder`` leaf by leaf (JAX ``load_target_encoder_params``,
+    ``avjepa_tpu/evals/video_classification.py:248-336``; reference:
+    evals/video_classification_frozen/eval.py:419-444): a leaf whose name and
+    shape match is taken; a missing or shape-mismatched one keeps its init
+    and is logged; checkpoint-only leaves (the audio patch embed of an AV
+    checkpoint in a video-only encoder) are counted and dropped.
+
+    With ``strict`` (unless ``pretrain.allow_missing_checkpoint``), a
+    missing file or any missing or mismatched leaf raises: probing a random
+    encoder wastes the run. Without it a missing file warns and returns
+    None. A directory (an Orbax checkpoint) is refused, naming the
+    converter. Returns the leaf names by outcome: ``taken``, ``missing``,
+    ``mismatched``, ``dropped``."""
+    logger = get_logger("avjepa_tpu_torch")
+    if not os.path.exists(path):
+        msg = f"pretrain checkpoint {path!r} does not exist"
+        if strict:
+            raise FileNotFoundError(msg + "; pass pretrain.allow_missing_checkpoint: true "
+                                    "to probe a random encoder anyway")
+        logger.warning(msg + "; evaluating a RANDOM encoder")
+        return None
+    src = load_encoder_checkpoint(path, prefer)
+    merged = encoder.state_dict()
+    out = {"taken": [], "missing": [], "mismatched": [],
+           "dropped": sorted(set(src) - set(merged))}
+    for name, init in merged.items():
+        if name not in src:
+            out["missing"].append(name)
+            logger.warning(f"checkpoint merge: {name} NOT in checkpoint; keeping init")
+        elif tuple(src[name].shape) != tuple(init.shape):
+            out["mismatched"].append(name)
+            logger.warning(f"checkpoint merge: {name} shape {tuple(src[name].shape)} != "
+                           f"model {tuple(init.shape)}; keeping init")
+        else:
+            out["taken"].append(name)
+            merged[name] = src[name]
+    logger.info(
+        f"checkpoint merge: {len(out['taken'])} leaves loaded, {len(out['missing'])} "
+        f"missing, {len(out['mismatched'])} shape-mismatched, {len(out['dropped'])} "
+        f"checkpoint-only dropped ({', '.join(out['dropped'][:4])})")
+    if strict and (out["missing"] or out["mismatched"]):
+        raise ValueError(
+            f"checkpoint {path!r} does not cover the encoder: {len(out['missing'])} missing + "
+            f"{len(out['mismatched'])} mismatched leaves (see log); pass "
+            "pretrain.allow_missing_checkpoint: true to keep init values for them")
+    encoder.load_state_dict(merged, strict=True)
+    return out
+
+
+def save_classifier_state(path: str, state, epoch: int) -> None:
+    """Write a classification eval's probe state (``classifier``,
+    ``optimizer``, ``step``) and the epoch to resume at, atomically."""
+    _save({"classifier": state.classifier.state_dict(), "opt": state.optimizer.state_dict(),
+           "step": state.step, "epoch": epoch}, path)
+
+
+def load_classifier_state(path: str, state) -> Optional[int]:
+    """Restore ``state`` in place from ``save_classifier_state``'s file and
+    return the epoch to resume at; None, leaving ``state`` as it is, when
+    there is no file or it does not fit (unreadable, or another classifier's
+    names or shapes, e.g. another ``num_classes``): the eval then starts
+    fresh, as the JAX evals do."""
+    if not os.path.isfile(path):
+        return None
+    logger = get_logger("avjepa_tpu_torch")
+    try:
+        ckpt = _load(path)
+    except (RuntimeError, EOFError, pickle.UnpicklingError) as e:
+        logger.warning(f"classifier checkpoint {path!r} is unreadable ({e}); starting fresh")
+        return None
+    own = state.classifier.state_dict()
+    saved = ckpt.get("classifier", {})
+    if set(saved) != set(own) or any(saved[k].shape != v.shape for k, v in own.items()):
+        logger.warning(f"classifier checkpoint {path!r} does not fit this classifier; "
+                       "starting fresh")
+        return None
+    state.classifier.load_state_dict(saved, strict=True)
+    state.optimizer.load_state_dict(ckpt["opt"])
+    state.step = int(ckpt["step"])
+    return int(ckpt["epoch"])

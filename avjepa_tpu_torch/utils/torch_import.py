@@ -256,6 +256,15 @@ def probe_params_to_state_dict(params: dict) -> dict:
     return out
 
 
+def classifier_params_to_state_dict(params: dict) -> dict:
+    """Flax ``AttentiveClassifier`` params -> the port's classifier state
+    dict: ``probe_params_to_state_dict``'s renames, and the pooler's
+    unscanned ``blocks_{i}`` as ``blocks.{i}`` (a ``ModuleList``). (Not in
+    the JAX package.)"""
+    return {re.sub(r"(^|\.)blocks_(\d+)\.", r"\1blocks.\2.", k): v
+            for k, v in probe_params_to_state_dict(params).items()}
+
+
 def predictor_params_to_state_dict(params: dict) -> dict:
     out = {}
     out["predictor_embed_v.weight"] = np.asarray(params["embed_v"]["kernel"]).T

@@ -46,9 +46,18 @@ exits non-zero:
  10. one probe step's frozen tokens and loss at batch 4 through the kernels
      against the plain attention; the probe step timed on a resident batch
      of 24 (CUDA events, peak memory), with K1 timed at its two dense
-     key-masked shapes of that path (d=64 encoder, d=24 predictor).
-Every run of phases 4-5 and 9 is driven with the kernels' launch counts set
-to 0 just before it and asserted just after. The last lines are a JSON
+     key-masked shapes of that path (d=64 encoder, d=24 predictor);
+ 11. the two frozen classification evals on the pretrain checkpoint of
+     phase 5 (its target encoder merged into a video-only ViT-L, the audio
+     leaves dropped), synthetic data: the video eval at
+     vitl16_k400_16x8x3.yaml (bf16, batch 4, 8 segments x 3 views attended
+     across, 4 probe steps), again resumed, with cached features, and with
+     frame aggregation (image mode); the image eval at vitl16_in1k.yaml
+     through the eval CLI; no attention or LayerNorm kernel runs (the JAX
+     evals use the plain attention). Then the classifier's logits in bf16
+     against f32, and the encode, probe and cached probe steps timed.
+Every run of phases 4-5, 9 and 11 is driven with the kernels' launch counts
+set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
 
@@ -61,6 +70,7 @@ Phases run alone too; the forward kernels, for instance:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import logging
@@ -1263,6 +1273,216 @@ def time_probe_k1(enc_m, pred_m) -> dict:
     return result
 
 
+def _eval_cfg(name: str, workdir: str, ckpt: str, tag: str, **opt) -> dict:
+    """configs/evals/<name> with synthetic data, the pretrain checkpoint
+    ``ckpt``, logging into ``workdir``/evals/``tag``; ``opt`` updates its
+    optimization section."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs/evals", name)) as f:
+        d = yaml.safe_load(f)
+    d["data"].update(source="synthetic", num_workers=8)
+    d["optimization"].update(opt)
+    d["pretrain"].update(folder=os.path.dirname(ckpt), checkpoint=os.path.basename(ckpt))
+    d.update(folder=os.path.join(workdir, "evals", tag), tag=tag)
+    return d
+
+
+class _Records(logging.Handler):
+    """Keeps the messages logged while it is attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def run_evals(workdir: str, ckpt: str) -> dict:
+    """The frozen classification evals at ViT-L width on the pretrain
+    checkpoint ``ckpt``, synthetic data (no K400/IN1k on the machine: top-1
+    is a plumbing check, not an accuracy), random classifiers from a seed:
+    - the video eval at vitl16_k400_16x8x3.yaml as it stands (16x224^2,
+      bf16, batch 4; validation over 8 segments x 3 views attended across,
+      the classifier over 8 x 1568 = 12,544 tokens), cut to 4 probe steps
+      through evals.video_classification.run, then resumed for 4 more
+      (``resume_checkpoint``); the synthetic sets hold 64 train and 32 val
+      clips;
+    - the same config with ``cache_features``: 64 clips encoded once, one
+      epoch of 16 cached probe steps (the cached path stops at an epoch's
+      end);
+    - ``frame_aggregation`` (image mode: batch 4 x 16 frames = 64 images of
+      196 tokens), cut to 2 segments x 1 view; the 2-D patch embed does not
+      take the tubelet weights, so ``allow_missing_checkpoint`` keeps its
+      init;
+    - the image eval at vitl16_in1k.yaml (batch 16, each image repeated over
+      16 frames) through the eval CLI entry, cut to 1 epoch (4 steps).
+    Each run starts with the attention and LayerNorm kernels' launch counts
+    at 0, and they stay 0. Checks finite losses, the CSV rows, 0 <= top-1 <=
+    100, the merge logs (audio leaves dropped, no leaf missing), the resumed
+    classifier; then one batch of classifier logits in bf16 against the same
+    weights in f32 (relative L2 within POOLED_REL_TOL), and times encode per
+    4-clip view, the probe step and the cached probe step (CUDA events,
+    median of 5 rounds), with a profile of encode
+    (chiprun_out/eval_encode_profile.txt)."""
+    import csv
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from avjepa_tpu_torch.app.eval_main import launch as eval_launch
+    from avjepa_tpu_torch.evals import video_classification as vc
+    from avjepa_tpu_torch.layout import TokenLayout
+    from avjepa_tpu_torch.models.attentive_pooler import AttentiveClassifier
+    from avjepa_tpu_torch.models.factory import VIT_SPECS
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.ops import layer_norm as ln
+    from avjepa_tpu_torch.train.optim import ScheduleConfig
+    from avjepa_tpu_torch.utils.device import resolve_device
+
+    records = _Records()
+    logging.getLogger("avjepa_tpu_torch").addHandler(records)
+    result = {}
+
+    def counted(label, fn, tag, steps, folder):
+        fa.reset_launches()
+        ln.reset_launches()
+        records.messages.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = fn()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {**fa.LAUNCHES, **ln.LAUNCHES}
+        with open(os.path.join(folder, f"{tag}_r0.csv")) as f:
+            rows = [r for r in csv.DictReader(f) if r["epoch"] != "epoch"]
+        losses = [float(r["loss"]) for r in rows]
+        merge = [m for m in records.messages if m.startswith("checkpoint merge: ")
+                 and "leaves loaded" in m]
+        print(f"evals: {label}: summary {summary}; {len(rows)} CSV rows, last losses "
+              f"{losses[-steps:]}; {wall:.1f} s (set-up, data and validation included), "
+              f"peak allocated {peak:.2f} GiB; kernel launches {launches}; {merge}")
+        if any(launches.values()):
+            raise AssertionError(f"{label}: a kernel ran: {launches}")
+        if (set(summary) != {"train_acc", "val_top1"} or not 0 <= summary["val_top1"] <= 100
+                or len(losses) < steps or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"{label}: summary {summary}, losses {losses}")
+        if len(merge) != 1:
+            raise AssertionError(f"{label}: no checkpoint merge logged")
+        result[label] = {"wall_s": wall, "peak_gib": peak, "rows": len(rows)}
+        return merge[0]
+
+    try:
+        d = _eval_cfg("vitl16_k400_16x8x3.yaml", workdir, ckpt, "k400")
+        cfg = vc.config_from_yaml(d)
+        merge = counted("video eval", lambda: vc.run(cfg, max_steps=4, device="cuda"),
+                        "k400", 4, cfg.folder)
+        if ", 0 missing, 0 shape-mismatched, 2 checkpoint-only dropped (patch_embed." \
+                "audio_proj.bias, patch_embed.audio_proj.weight)" not in merge:
+            raise AssertionError(f"video eval: merge {merge!r}")
+        saved = os.path.join(cfg.folder, "k400-cls-latest.pth.tar")
+        first = torch.load(saved, map_location="cpu", weights_only=True)
+        resumed = dataclasses.replace(cfg, resume_checkpoint=True)
+        counted("video eval resumed", lambda: vc.run(resumed, max_steps=4, device="cuda"),
+                "k400", 4, cfg.folder)
+        second = torch.load(saved, map_location="cpu", weights_only=True)
+        if ((first["step"], first["epoch"], second["step"], second["epoch"]) != (4, 1, 8, 2)
+                or "resumed classifier at epoch 1" not in records.messages):
+            raise AssertionError(f"the classifier was not resumed: {first['step']}, "
+                                 f"{second['step']}")
+        print(f"evals: classifier saved at step {first['step']}, resumed at epoch "
+              f"{first['epoch']}, saved again at step {second['step']}")
+
+        d = _eval_cfg("vitl16_k400_16x8x3.yaml", workdir, ckpt, "k400-cached",
+                      cache_features=True)
+        cached = vc.config_from_yaml(d)
+        counted("video eval cached", lambda: vc.run(cached, max_steps=4, device="cuda"),
+                "k400-cached", 16, cached.folder)
+
+        d = _eval_cfg("vitl16_k400_16x8x3.yaml", workdir, ckpt, "k400-frames",
+                      frame_aggregation=True)
+        d["data"].update(num_segments=2, num_views_per_segment=1)
+        d["pretrain"]["allow_missing_checkpoint"] = True
+        frames = vc.config_from_yaml(d)
+        merge = counted("video eval frame aggregation",
+                        lambda: vc.run(frames, max_steps=4, device="cuda"),
+                        "k400-frames", 4, frames.folder)
+        if ", 0 missing, 1 shape-mismatched, 2 checkpoint-only" not in merge:
+            raise AssertionError(f"frame aggregation: merge {merge!r}")
+
+        d = _eval_cfg("vitl16_in1k.yaml", workdir, ckpt, "in1k", num_epochs=1)
+        path = os.path.join(workdir, "in1k.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        counted("image eval", lambda: eval_launch(path, device="cuda"), "in1k", 4, d["folder"])
+    finally:
+        logging.getLogger("avjepa_tpu_torch").removeHandler(records)
+
+    # the pieces on one batch: encoder, classifier bf16 vs f32, step times
+    device = resolve_device("cuda")
+    layout = TokenLayout(num_frames=cfg.frames_per_clip, crop_size=cfg.resolution,
+                         patch_size=cfg.patch_size, tubelet_size=cfg.tubelet_size,
+                         audio_enabled=False)
+    encoder = vc.frozen_encoder(cfg.model_name, layout, cfg.uniform_power, torch.bfloat16,
+                                cfg.gelu, cfg.seed, ckpt, False, device)
+    state = vc.make_classifier(cfg.model_name, cfg.num_classes, torch.bfloat16, cfg.seed + 1,
+                               device)
+    spec = VIT_SPECS[cfg.model_name]
+    f32 = AttentiveClassifier(spec.embed_dim, spec.num_heads, num_classes=cfg.num_classes)
+    f32.load_state_dict(state.classifier.state_dict())
+    f32.to(device)
+    batched, seg_idx, labels = vc.collate(
+        [vc.SyntheticVideoClsDataset(cfg, train=False)[i] for i in range(cfg.batch_size)])
+    clips = [vc.to_device(batched[s][0], device) for s in range(len(batched))]
+    feats = vc.aggregate(cfg, [vc.encode(encoder, c) for c in clips], seg_idx,
+                         layout.h_grid * layout.w_grid)[0]
+    with torch.no_grad():
+        got, want = state.classifier(feats).float(), f32(feats.float())
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"evals: classifier logits over {tuple(feats.shape)} tokens, bf16 vs f32: rel L2 "
+          f"{rel:.3e} (tol {POOLED_REL_TOL:g})")
+    if rel > POOLED_REL_TOL:
+        raise AssertionError("the bf16 classifier disagrees with the f32 one")
+
+    fa.reset_launches()
+    encode_ms = _time_rounds(lambda: vc.encode(encoder, clips[0]), 2)
+    train = vc.collate([vc.SyntheticVideoClsDataset(cfg, train=True)[i]
+                        for i in range(cfg.batch_size)])
+    step_feats = vc.encode(encoder, vc.to_device(train[0][0][0], device))
+    step_labels = vc.to_device(train[2], device)
+    sched = ScheduleConfig(ipe=16, num_epochs=cfg.num_epochs, ipe_scale=1.0, warmup_epochs=0,
+                           start_lr=cfg.start_lr, ref_lr=cfg.lr, final_lr=cfg.final_lr)
+    step_ms = _time_rounds(lambda: vc.probe_step(state, sched, cfg.weight_decay, step_feats,
+                                                 step_labels), 2)
+    # the cached probe's step: a batch gathered from 64 resident clips
+    cache = step_feats.repeat(64 // cfg.batch_size, 1, 1)
+    cache_labels = step_labels.repeat(64 // cfg.batch_size)
+    draw = np.random.default_rng([cfg.seed, 17])
+
+    def cached_step():
+        idx = vc.to_device(draw.choice(64, size=cfg.batch_size, replace=False), device)
+        vc.probe_step(state, sched, cfg.weight_decay, cache[idx], cache_labels[idx])
+
+    cached_ms = _time_rounds(cached_step, 2)
+    predict_ms = _time_rounds(lambda: vc.predict(state.classifier, feats), 2)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"an attention kernel ran in the eval timings: {fa.LAUNCHES}")
+    b, n = step_feats.shape[:2]
+    print(f"evals: encode {encode_ms[1]:.2f} ms per view of {b} clips ({cfg.frames_per_clip}x"
+          f"{cfg.resolution}^2, {n} tokens, bf16, plain attention; min {encode_ms[0]:.2f}, "
+          f"max {encode_ms[2]:.2f}); probe step {step_ms[1]:.2f} ms ({b} x {n} tokens; "
+          f"{step_ms[0]:.2f}-{step_ms[2]:.2f}); cached probe step {cached_ms[1]:.2f} ms "
+          f"({cached_ms[0]:.2f}-{cached_ms[2]:.2f}); classifier predict over {b} x "
+          f"{feats.shape[1]} tokens {predict_ms[1]:.2f} ms; CUDA events, median of "
+          f"{TIME_ROUNDS} rounds; {card_line()}")
+    _profile(lambda: vc.encode(encoder, clips[0]), "evals: encode", "eval_encode_profile.txt")
+    result.update(encode_ms=encode_ms, step_ms=step_ms, cached_ms=cached_ms,
+                  predict_ms=predict_ms, logits_rel=rel)
+    return result
+
+
 def main() -> None:
     try:
         import torch
@@ -1287,6 +1507,9 @@ def main() -> None:
         run_avprediction(workdir, train["ckpt"])
         check_probe_vs_plain(workdir, train["ckpt"])
         time_probe_step(workdir, train["ckpt"])
+        t0 = time.perf_counter()
+        run_evals(workdir, train["ckpt"])
+        print(f"evals: phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)

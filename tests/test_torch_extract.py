@@ -117,7 +117,9 @@ def test_extract_matches_jax_app(tmp_path):
 
 def test_package_imports_no_jax():
     """Every module of avjepa_tpu_torch imports (the avprediction slice's
-    among them: the LayerNorm kernels, probes, app, eval and eval CLI), then
+    among them: the LayerNorm kernels, probes, app, eval and eval CLI; and
+    the classification evals', with the attentive classifier and
+    RandAugment), then
     chip_smoke; none of them pulls in JAX (or flax, optax, orbax) or any module of the JAX
     package avjepa_tpu, directly or through what it imports."""
     code = (
@@ -131,7 +133,8 @@ def test_package_imports_no_jax():
         "or m.startswith('avjepa_tpu.'))\n"
         "new = {'avjepa_tpu_torch.' + m for m in ('ops.layer_norm', "
         "'models.prediction_probes', 'train.avprediction', 'evals', 'evals.av_prediction', "
-        "'app.eval_main')}\n"
+        "'app.eval_main', 'models.attentive_pooler', 'evals.video_classification', "
+        "'evals.image_classification', 'data.randaugment')}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert len(mods) >= 36 and not bad(), (len(mods), bad())\n"
         "import chip_smoke\n"
@@ -204,11 +207,6 @@ def test_feature_layer_norm_matches_jax():
 
 
 def test_unported_apps_and_orbax_dirs_are_refused(tmp_path):
-    from avjepa_tpu_torch.registry import eval_main
-
-    for name in ("video_classification_frozen", "image_classification_frozen"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eval_main(name, {})
     with pytest.raises(ValueError, match="Orbax"):
         load_encoder_checkpoint(str(tmp_path))
     d = _cfg(tmp_path, extract={"allow_random": False})

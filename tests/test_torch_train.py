@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from avjepa_tpu.data import mel as jax_mel
+from avjepa_tpu.data import randaugment as jax_randaugment
 from avjepa_tpu.data import transforms as jax_transforms
 from avjepa_tpu.data.av_dataset import sample_clip_indices as jax_sample_clip_indices
 from avjepa_tpu.data.synthetic import SyntheticAVDataset as JaxSynthetic
@@ -41,7 +42,7 @@ from avjepa_tpu.train.step import stack_masksets as jax_stack_masksets
 from avjepa_tpu.utils import tensors as jax_tensors
 from avjepa_tpu.utils import torch_import as jax_torch_import
 from avjepa_tpu_torch.app.main import launch
-from avjepa_tpu_torch.data import mel, transforms
+from avjepa_tpu_torch.data import mel, randaugment, transforms
 from avjepa_tpu_torch.data.av_dataset import sample_clip_indices
 from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
 from avjepa_tpu_torch.layout import TokenLayout
@@ -497,5 +498,15 @@ def test_host_module_copies_match_originals():
         assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
         assert all(np.array_equal(a, b, equal_nan=True)  # uninitialised weights
                    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transforms.VideoTransform(auto_augment=True)
+    # AutoAugment (randaugment.py, pinned with the image eval's in
+    # tests/test_torch_evals.py) inside the train transform
+    got = transforms.VideoTransform(crop_size=32, auto_augment=True)(clip.copy(),
+                                                                     np.random.default_rng(3))
+    want = jax_transforms.VideoTransform(crop_size=32, auto_augment=True)(
+        clip.copy(), np.random.default_rng(3))
+    np.testing.assert_array_equal(got, want)
+    src = []
+    for module in (randaugment, jax_randaugment):
+        with open(module.__file__) as f:
+            src.append(f.read().split('"""', 2)[2])  # the code after the docstring
+    assert src[0] == src[1]
