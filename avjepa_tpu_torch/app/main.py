@@ -2,7 +2,8 @@
 
 Same YAML schema and CLI shape as ``avjepa_tpu/app/main.py``. One process
 drives one device: the GPU (``--device cuda``, the default), or the CPU when
-``--device cpu`` asks for it. There is no ``torch.distributed`` yet.
+``--device cpu`` asks for it. Several GPUs, one process each over
+``torch.distributed``, run through ``app/main_distributed.py``.
 ``AVJEPA_RESUME_PREEMPT=1`` passes ``resume_preempt`` to the app, which then
 resumes from its latest checkpoint (a SIGTERM'd run requeued by its
 supervisor).

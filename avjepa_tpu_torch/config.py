@@ -5,8 +5,10 @@ reference's keys, plus the JAX package's ``tpu:`` section), the same
 dataclasses, defaults and section aliases, validated against the port's own
 ``VIT_SPECS``. Of the ``tpu:`` knobs, ``attn_impl``, ``gelu``, ``remat``,
 ``mask_type``, ``compact_context``, ``compact_predictor``,
-``sticky_mask_buckets`` and ``light_metrics`` mean the same on the GPU; the
-mesh knobs are read and not used (one process drives one device).
+``sticky_mask_buckets`` and ``light_metrics`` mean the same on the GPU; of
+the mesh knobs, ``mesh_data`` is the data axis over the process group (one
+process per GPU, ``parallel/dist.py::make_mesh``: -1 takes every rank), and
+``mesh_fsdp`` or ``mesh_tensor`` above 1 raises (not ported yet).
 """
 
 from __future__ import annotations

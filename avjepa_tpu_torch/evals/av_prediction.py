@@ -20,6 +20,9 @@ Metrics per modality over EVERY mask config of ``cfg.mask`` (mask index
 full-frame video MSE and PSNR (fixed range 4.0: normalized pixels span about
 [-2.1, 2.6]), full-spectrogram audio MSE and PSNR (fixed range 80 dB, mel
 ``top_db=80``). The summary keys are the JAX package's.
+
+Data parallel (``parallel/dist.py``): each rank scores its shard of the
+sampler, and the MSEs are averaged over every rank's batches.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from avjepa_tpu_torch.config import ExperimentConfig, load_config
 from avjepa_tpu_torch.data.loader import BatchLoader, ShardedSampler
 from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
 from avjepa_tpu_torch.masks.multiblock3d import make_mask_collator
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train import avprediction
 from avjepa_tpu_torch.utils.checkpoint import load_probe_state
 from avjepa_tpu_torch.utils.device import resolve_device
@@ -72,7 +76,8 @@ def build_eval_loader(cfg: ExperimentConfig, layout, seed_salt: int = 101) -> Ba
     collator = make_mask_collator(cfg.data.mask_type or cfg.tpu.mask_type, cfg.mask, layout,
                                   base_seed=seed)
     collator.set_counter(-1)  # a fixed start: the same masks run to run
-    sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=False, seed=seed)
+    sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=False, seed=seed,
+                             num_shards=dist.world(), shard_index=dist.rank())
     return BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
                        mask_collator=collator)
 
@@ -126,18 +131,22 @@ def run(cfg: ExperimentConfig, max_batches: int = 50, require_probe: bool = True
         data_iter.close()
         loader.close()
 
-    mse_v_per = [m.avg for m in v_meters]
+    # per-config means over every rank's batches (equal in number and size)
+    totals = dist.reduce(torch.tensor([m.sum for m in v_meters + a_meters]
+                                      + [v_meters[0].count], dtype=torch.float64), "sum")
+    *sums, num_batches = totals.tolist()
+    mse_v_per = [x / max(num_batches, 1) for x in sums[:num_cfgs]]
     mse_v = float(np.mean(mse_v_per))
     summary = {
         "mse_video": mse_v,
         "psnr_video_db": _psnr(mse_v, _VIDEO_RANGE),
         "mse_video_per_mask": mse_v_per,
-        "num_batches": v_meters[0].count,
+        "num_batches": int(num_batches),
     }
     msg = (f"[av_prediction eval] video MSE {mse_v:.5f} ({summary['psnr_video_db']:.1f} dB) "
            f"over {num_cfgs} mask cfgs")
     if layout.audio_enabled:
-        mse_a_per = [m.avg for m in a_meters]
+        mse_a_per = [x / max(num_batches, 1) for x in sums[num_cfgs:]]
         mse_a = float(np.mean(mse_a_per))
         summary.update(mse_audio=mse_a, psnr_audio_db=_psnr(mse_a, _AUDIO_RANGE_DB),
                        mse_audio_per_mask=mse_a_per)

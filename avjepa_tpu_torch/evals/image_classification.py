@@ -17,7 +17,8 @@ decoder; the train transform is RandomResizedCrop, flip, AutoAugment
 the short side to ``resolution * 256 / 224`` and takes the center crop. The
 config, datasets, seeds, CSV and summary are the JAX module's; the encoder,
 classifier, probe step, checkpoints and exact validation are the video
-eval's (``evals/video_classification.py``).
+eval's (``evals/video_classification.py``), and so is its data parallelism
+(``batch_size`` per GPU, each rank on its shard).
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from avjepa_tpu_torch.data.transforms import (
 from avjepa_tpu_torch.data.video_decoder import VideoFile
 from avjepa_tpu_torch.evals.video_classification import (
     classifier_path,
-    count_correct,
     frozen_encoder,
     make_classifier,
     predict,
@@ -51,6 +51,7 @@ from avjepa_tpu_torch.evals.video_classification import (
     to_device,
 )
 from avjepa_tpu_torch.layout import TokenLayout
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.optim import ScheduleConfig
 from avjepa_tpu_torch.utils.checkpoint import save_classifier_state
 from avjepa_tpu_torch.utils.device import resolve_device
@@ -250,8 +251,8 @@ def run(cfg: ImageEvalConfig, max_steps: Optional[int] = None,
     else:
         train_ds = ImageDataset(cfg, True)
         val_ds = ImageDataset(cfg, False)
-    batch = cfg.batch_size  # one GPU: the global batch
-    ipe = max(1, len(train_ds) // batch)
+    batch = cfg.batch_size  # per GPU
+    ipe = max(1, len(train_ds) // (batch * dist.world()))
     sched = ScheduleConfig(
         ipe=ipe, num_epochs=cfg.num_epochs, ipe_scale=1.0, warmup_epochs=cfg.warmup,
         start_lr=cfg.start_lr, ref_lr=cfg.lr, final_lr=cfg.final_lr,
@@ -265,10 +266,11 @@ def run(cfg: ImageEvalConfig, max_steps: Optional[int] = None,
     path = classifier_path(cfg.folder, cfg.tag)
     start_epoch, last_saved = restore_classifier(path, state, cfg.resume_checkpoint)
     csv_logger = CSVLogger(
-        os.path.join(cfg.folder, f"{cfg.tag}_r0.csv"),
+        os.path.join(cfg.folder, f"{cfg.tag}_r{dist.rank()}.csv"),
         ("%d", "epoch"), ("%d", "itr"), ("%.5f", "loss"), ("%.3f", "acc"),
     )
-    sampler = ShardedSampler(len(train_ds), batch, seed=cfg.seed)
+    sampler = ShardedSampler(len(train_ds), batch, seed=cfg.seed, num_shards=dist.world(),
+                             shard_index=dist.rank())
     loader = BatchLoader(train_ds, sampler, num_workers=cfg.num_workers, collate=collate)
     summary = {}
     total = 0
@@ -295,22 +297,26 @@ def run(cfg: ImageEvalConfig, max_steps: Optional[int] = None,
             logger.info(f"[image-eval {epoch + 1}] top1(train) {meter.avg:.2f}%")
             summary["train_acc"] = meter.avg
             if state.step != last_saved:  # skip epochs that took no step
-                save_classifier_state(path, state, epoch + 1)
+                if dist.is_main():
+                    save_classifier_state(path, state, epoch + 1)
+                dist.barrier()
                 last_saved = state.step
             if done():
                 break
     finally:
         loader.close()
 
-    val_sampler = ShardedSampler(len(val_ds), batch, shuffle=False, drop_last=False)
+    val_sampler = ShardedSampler(len(val_ds), batch, shuffle=False, drop_last=False,
+                                 num_shards=dist.world(), shard_index=dist.rank())
     loader = BatchLoader(val_ds, val_sampler, num_workers=cfg.num_workers,
                          collate=exact_val_collate(collate), retry_resample=False)
     correct = count = 0
     try:
         for (imgs, labels, ok), valid in zip(loader, val_sampler.batch_valid_masks()):
             probs = predict(state.classifier, features(imgs))
-            c, n = count_correct(probs, to_device(labels, device), to_device(valid & ok, device))
-            correct, count = correct + c, count + n
+            counted = to_device(valid & ok, device)
+            correct += dist.count_correct(probs, to_device(labels, device), counted)
+            count += dist.count_valid(counted)
     finally:
         loader.close()
     top1 = 100.0 * correct / max(count, 1)

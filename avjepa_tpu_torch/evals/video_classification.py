@@ -14,8 +14,14 @@ failures out.
 
 The config, the datasets (with their numpy seeds) and the CSV are the JAX
 module's. The frozen encoder and the classifier use the plain attention, as
-the JAX evals do (``attn_impl="xla"``): no attention kernel runs here. One
-GPU: the global batch is ``batch_size``. The probe step is the JAX one: lr
+the JAX evals do (``attn_impl="xla"``): no attention kernel runs here.
+``batch_size`` is per GPU: with a process group (``parallel/dist.py``) each
+rank trains and validates on its shard, the global batch is ``batch_size``
+times the world, the classifier's gradients are averaged over the ranks in
+one all-reduce before the clip, the logged loss and accuracy are global
+means, top-1 comes from the all-reduced correct and valid counts, and rank
+0 alone writes the classifier file; the cached-feature probe takes one
+process, as in the JAX eval. The probe step is the JAX one: lr
 from the schedule each step, constant weight decay, the global-norm clip at
 1.0, AdamW with ``wd_mask``'s rule (``optim.plain_decays``). The classifier
 state is saved to ``<folder>/<tag>-cls-latest.pth.tar`` and restored under
@@ -41,6 +47,7 @@ from avjepa_tpu_torch.models import pos_embed as pe
 from avjepa_tpu_torch.models.attentive_pooler import AttentiveClassifier
 from avjepa_tpu_torch.models.encoder import Encoder
 from avjepa_tpu_torch.models.factory import VIT_SPECS, init_classifier_params, make_encoder
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.optim import (
     ScheduleConfig,
     clip_,
@@ -292,7 +299,7 @@ def make_classifier(model_name: str, num_classes: int, dtype: torch.dtype, seed:
     classifier = AttentiveClassifier(embed_dim=spec.embed_dim, num_heads=spec.num_heads,
                                      depth=1, num_classes=num_classes, dtype=dtype)
     init_classifier_params(classifier, seed)
-    classifier.to(device)
+    dist.broadcast_module(classifier.to(device))
     return ClassifierState(classifier, make_optimizer([classifier], rule=plain_decays))
 
 
@@ -341,19 +348,21 @@ def cls_loss(classifier: AttentiveClassifier, feats: torch.Tensor, labels: torch
 def probe_step(state: ClassifierState, sched: ScheduleConfig, weight_decay: float,
                feats: torch.Tensor, labels: torch.Tensor) -> dict:
     """One classifier update in place (JAX ``train_step``): lr from the
-    schedule at ``state.step``, gradients clipped to global norm 1.0, AdamW
-    with constant ``weight_decay``. Returns loss, acc and lr as numbers."""
+    schedule at ``state.step``, gradients averaged over the ranks and
+    clipped to global norm 1.0, AdamW with constant ``weight_decay``.
+    Returns the global batch's loss and acc, and lr, as numbers."""
     lr = lr_at_step(sched, state.step)
     state.optimizer.zero_grad(set_to_none=True)
     loss, logits = cls_loss(state.classifier, feats, labels)
     loss.backward()
+    dist.all_reduce_grads([state.classifier])
     grads = [p.grad for p in state.classifier.parameters() if p.grad is not None]
     clip_(grads, global_norm(grads), 1.0)
     set_lr_wd(state.optimizer, lr, weight_decay)
     state.optimizer.step()
     state.step += 1
     acc = (logits.argmax(-1) == labels).float().mean()
-    loss, acc = torch.stack([loss.detach(), acc]).tolist()  # one device sync
+    loss, acc = dist.reduce(torch.stack([loss.detach(), acc]), "mean").tolist()  # one sync
     return {"loss": loss, "acc": acc, "lr": lr}
 
 
@@ -380,12 +389,6 @@ def restore_classifier(path: str, state: ClassifierState, resume: bool) -> tuple
     return epoch, state.step
 
 
-def count_correct(probs: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
-    """(correct, counted) over the rows ``valid`` marks."""
-    ok = (probs.argmax(-1) == labels) & valid
-    return int(ok.sum().item()), int(valid.sum().item())
-
-
 def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
         device: str | torch.device = "cuda") -> dict:
     logger = get_logger("avjepa_tpu_torch")
@@ -409,8 +412,8 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
     else:
         train_ds = VideoClassificationDataset(cfg, train=True)
         val_ds = VideoClassificationDataset(cfg, train=False)
-    batch = cfg.batch_size  # one GPU: the global batch
-    ipe = max(1, len(train_ds) // batch)
+    batch = cfg.batch_size  # per GPU
+    ipe = max(1, len(train_ds) // (batch * dist.world()))
     sched = ScheduleConfig(
         ipe=ipe, num_epochs=cfg.num_epochs, ipe_scale=1.0, warmup_epochs=cfg.warmup,
         start_lr=cfg.start_lr, ref_lr=cfg.lr, final_lr=cfg.final_lr,
@@ -427,7 +430,7 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
     path = classifier_path(cfg.folder, cfg.tag)
     start_epoch, last_saved = restore_classifier(path, state, cfg.resume_checkpoint)
     csv_logger = CSVLogger(
-        os.path.join(cfg.folder, f"{cfg.tag}_r0.csv"),
+        os.path.join(cfg.folder, f"{cfg.tag}_r{dist.rank()}.csv"),
         ("%d", "epoch"), ("%d", "itr"), ("%.5f", "loss"), ("%.3f", "acc"), ("%.2e", "lr"),
     )
     summary = {}
@@ -444,13 +447,18 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
     def save(epoch: int) -> None:
         nonlocal last_saved
         if state.step != last_saved:  # skip epochs that took no step
-            save_classifier_state(path, state, epoch + 1)
+            if dist.is_main():
+                save_classifier_state(path, state, epoch + 1)
+            dist.barrier()
             last_saved = state.step
 
     done = lambda: max_steps is not None and total >= max_steps  # noqa: E731
     if cfg.cache_features:
         # encode each train clip once with eval views; the features stay on
         # the device and every step gathers a batch of them
+        if dist.world() > 1:
+            raise NotImplementedError("optimization.cache_features runs in one process "
+                                      "(as the JAX eval does)")
         if cfg.source == "synthetic":
             cache_ds = SyntheticVideoClsDataset(cfg, train=True)
         else:
@@ -489,7 +497,8 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
                 break
         del cache, cache_labels
     else:
-        sampler = ShardedSampler(len(train_ds), batch, seed=cfg.seed)
+        sampler = ShardedSampler(len(train_ds), batch, seed=cfg.seed, num_shards=dist.world(),
+                                 shard_index=dist.rank())
         loader = BatchLoader(train_ds, sampler, num_workers=cfg.num_workers, collate=collate)
         try:
             for epoch in range(start_epoch, cfg.num_epochs):
@@ -514,8 +523,10 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
             loader.close()
 
     # validation: softmax averaged over segments, summed over views; exact
-    # counts (wrap-padded rows and decode failures left out)
-    val_sampler = ShardedSampler(len(val_ds), batch, shuffle=False, seed=0, drop_last=False)
+    # counts over the global batch (wrap-padded rows and decode failures
+    # left out)
+    val_sampler = ShardedSampler(len(val_ds), batch, shuffle=False, seed=0, drop_last=False,
+                                 num_shards=dist.world(), shard_index=dist.rank())
     loader = BatchLoader(val_ds, val_sampler, num_workers=cfg.num_workers,
                          collate=exact_val_collate(collate), retry_resample=False)
     correct = count = 0
@@ -526,8 +537,9 @@ def run(cfg: VideoEvalConfig, max_steps: Optional[int] = None,
                 feats_list = features(batched, seg_idx, v)
                 probs = probs + sum(predict(state.classifier, f)
                                     for f in feats_list) / len(feats_list)
-            c, n = count_correct(probs, to_device(labels, device), to_device(valid & ok, device))
-            correct, count = correct + c, count + n
+            counted = to_device(valid & ok, device)
+            correct += dist.count_correct(probs, to_device(labels, device), counted)
+            count += dist.count_valid(counted)
     finally:
         loader.close()
     top1 = 100.0 * correct / max(count, 1)

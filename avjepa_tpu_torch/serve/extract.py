@@ -1,4 +1,4 @@
-"""Frozen-encoder batch feature extraction: the serving app, on one GPU.
+"""Frozen-encoder batch feature extraction: the serving app, one process per GPU.
 
     python -m avjepa_tpu_torch.app.main --fname configs/extract/vitl16_extract.yaml
 
@@ -12,21 +12,28 @@ the parameter-free feature LayerNorm and, with ``pooling: mean``, the mean
 over tokens.
 
 Design:
-  - the encoder runs eagerly in PyTorch on one device; its attention layers
-    launch the port's CUDA kernels (``ops/flash_attention.py``);
+  - the encoder runs eagerly in PyTorch on each rank's device; its attention
+    layers launch the port's CUDA kernels (``ops/flash_attention.py``);
+  - each rank (``parallel/dist.py``) encodes its shard of the unshuffled
+    sampler, ``data.batch_size`` clips a batch, and writes the rows it owns
+    (row ``r`` belongs to rank ``r % world``, as in the JAX package) to its
+    own ``_r{rank}`` files: the ranks' files hold every row once;
   - the sampler wrap-pads the final partial batch so every batch has the
     same shape; rows are deduplicated by id on write;
   - host ingest decodes in a thread pool ahead of the device, with a
     deterministic transform (short-side resize, fixed crop, normalize,
     uniform clip window) so embeddings are reproducible run to run.
 
-Outputs under ``extract.output`` (default <logging.folder>/<tag>-features):
-  - pooling 'mean': features_r0.npz {indices, embeddings [n, D]} when the
-    rows fit in one ``extract.chunk_rows`` chunk, else features_r0_{k}.npz
-  - pooling 'tokens': tokens_r0_{k}.npz {indices, embeddings [n, N, D]}
-  - index_r0.csv: row -> media path, label
-  - missing_r0.csv: rows that produced no embedding (undecodable files)
-  - summary_r0.json: row counts, dim, clips/sec, device
+Outputs under ``extract.output`` (default <logging.folder>/<tag>-features),
+one set a rank:
+  - pooling 'mean': features_r{rank}.npz {indices, embeddings [n, D]} when
+    the rows fit in one ``extract.chunk_rows`` chunk, else
+    features_r{rank}_{k}.npz
+  - pooling 'tokens': tokens_r{rank}_{k}.npz {indices, embeddings [n, N, D]}
+  - index_r{rank}.csv: row -> media path, label
+  - missing_r{rank}.csv: owned rows that produced no embedding (undecodable
+    files)
+  - summary_r{rank}.json: row counts, dim, clips/sec, device
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
 from avjepa_tpu_torch.data.transforms import EvalVideoTransform
 from avjepa_tpu_torch.models.encoder import Encoder
 from avjepa_tpu_torch.models.factory import DTYPES, VIT_SPECS, make_encoder
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.step import feature_layer_norm
 from avjepa_tpu_torch.utils.checkpoint import load_encoder_checkpoint
 from avjepa_tpu_torch.utils.device import resolve_device
@@ -150,7 +158,7 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
     CPU)."""
     cfg = args if isinstance(args, ExperimentConfig) else load_config(args)
     ex = cfg.extract
-    rank = 0  # one process, one device
+    rank, world = dist.rank(), dist.world()
     logger = get_logger("avjepa_tpu_torch")
     device = resolve_device(device)
     layout = cfg.layout()
@@ -161,7 +169,8 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
         )
 
     os.makedirs(cfg.logging.folder, exist_ok=True)
-    dump_config(cfg, os.path.join(cfg.logging.folder, "params-extract.yaml"))
+    if rank == 0:
+        dump_config(cfg, os.path.join(cfg.logging.folder, "params-extract.yaml"))
 
     encoder = build_encoder(cfg, device)
     dim = VIT_SPECS[cfg.model.model_name].embed_dim
@@ -174,6 +183,8 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
         batch_size=cfg.data.batch_size,
         shuffle=False,
         seed=cfg.meta.seed,
+        num_shards=world,
+        shard_index=rank,
         drop_last=False,
     )
     loader = BatchLoader(view, sampler, num_workers=cfg.data.num_workers)
@@ -222,8 +233,10 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
             out = encode(encoder, v, a, ex).cpu().numpy()
             for row, emb in zip(idx_batch, out):
                 row = int(row)
-                if row >= n_total or written[row]:
-                    continue  # wrap-padded duplicate
+                # the sampler's shard padding can put a copy of another
+                # rank's row in this shard: keep the rows this rank owns
+                if row % world != rank or row >= n_total or written[row]:
+                    continue  # another rank's row or a wrap-padded duplicate
                 written[row] = True
                 pending.append((row, emb))
             n_clips += len(idx_batch)
@@ -249,7 +262,8 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
 
     # rows that never arrived: retry-resample substitutes a DIFFERENT index
     # for a failed decode, which dedup discards; name every dropped row
-    missing = np.nonzero(~written)[0]
+    owned = np.arange(rank, n_total, world)
+    missing = owned[~written[owned]]
     if missing.size:
         with open(os.path.join(out_dir, f"missing_r{rank}.csv"), "w") as f:
             f.write("row,path\n")

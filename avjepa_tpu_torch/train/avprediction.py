@@ -21,6 +21,12 @@ the end of every epoch to ``<folder>/<tag>-probe-latest.pth.tar``; with
 
 ``example_main`` is the avprediction_example app (inference and
 visualization twin).
+
+Data parallel (``parallel/dist.py``): each rank trains on its shard of the
+pretrain app's sampler, the probe's gradients are averaged over the ranks
+in one all-reduce (the frozen models have none), the logged losses are the
+global means, each rank writes ``<tag>_probe_r{rank}.csv``, and rank 0 alone
+writes the probe checkpoint and the example's files.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from avjepa_tpu_torch.config import ExperimentConfig, load_config
 from avjepa_tpu_torch.masks.multiblock3d import stack_masksets
 from avjepa_tpu_torch.models.prediction_probes import AttentionProbe, init_probe_
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train import pretrain
 from avjepa_tpu_torch.train.optim import ScheduleConfig, lr_at_step, make_optimizer, set_lr_wd, wd_at_step
 from avjepa_tpu_torch.utils.checkpoint import load_jepa_weights, load_probe_state, save_probe_state
@@ -65,6 +72,7 @@ def setup_probe(cfg: ExperimentConfig, device: torch.device):
     layout = cfg.layout()
     emb_dim = handles.state.encoder.norm.normalized_shape[0]
     probe = init_probe_(AttentionProbe(layout, emb_dim=emb_dim), cfg.meta.seed + 1).to(device)
+    dist.broadcast_module(probe)
     opt = cfg.optimization
     sched = ScheduleConfig(
         ipe=opt.ipe, num_epochs=opt.epochs, ipe_scale=opt.ipe_scale, warmup_epochs=opt.warmup,
@@ -117,17 +125,19 @@ def reconstruction_mse(probe, full, video, audio) -> tuple[torch.Tensor, torch.T
 def probe_step(state: ProbeState, sched: ScheduleConfig, encoder, predictor, video, audio,
                enc_masks, pred_masks) -> dict:
     """One probe step in place on ``state`` (JAX ``make_probe_step``) on mask
-    config 0; returns its metrics as Python numbers."""
+    config 0; returns its metrics as Python numbers, means over the global
+    batch."""
     lr, wd = lr_at_step(sched, state.step), wd_at_step(sched, state.step)
     full = frozen_tokens(encoder, predictor, video, audio, enc_masks[0], pred_masks[0], 0)
     state.optimizer.zero_grad(set_to_none=True)
     loss_v, loss_a = reconstruction_mse(state.probe, full, video, audio)
     loss = loss_v + loss_a
     loss.backward()
+    dist.all_reduce_grads([state.probe])
     set_lr_wd(state.optimizer, lr, wd)
     state.optimizer.step()
     state.step += 1
-    values = torch.stack([loss, loss_v, loss_a]).tolist()
+    values = dist.reduce(torch.stack([loss, loss_v, loss_a]).detach(), "mean").tolist()
     return {"loss": values[0], "loss_video": values[1], "loss_audio": values[2], "lr": lr}
 
 
@@ -154,7 +164,8 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None, resume_preempt: 
         os.makedirs(folder, exist_ok=True)
         restore_jepa_weights(handles, cfg, logger)
         encoder, predictor = handles.state.target_encoder, handles.state.predictor
-        csv_logger = CSVLogger(os.path.join(folder, f"{tag}_probe_r0.csv"), *CSV_COLUMNS)
+        csv_logger = CSVLogger(os.path.join(folder, f"{tag}_probe_r{dist.rank()}.csv"),
+                               *CSV_COLUMNS)
         path = probe_path(cfg)
         last_saved, start_epoch = -1, 0
         ipe, epochs = cfg.optimization.ipe, cfg.optimization.epochs
@@ -190,7 +201,9 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None, resume_preempt: 
                 if max_steps is not None and total >= max_steps:
                     break
             if state.step != last_saved:
-                save_probe_state(path, state)
+                if dist.is_main():
+                    save_probe_state(path, state)
+                dist.barrier()
                 last_saved = state.step
             summary = {"epoch": epoch + 1, "avg_loss": meter.avg}
             if max_steps is not None and total >= max_steps:
@@ -214,13 +227,28 @@ def example_main(args, resume_preempt: bool = False, device: str | torch.device 
     ``audio``, ``audio_recon`` of the first clip), and a PNG of frame 0 and
     the spectrogram when matplotlib is installed. Unlike the JAX app, which
     reconstructs through its randomly initialised models, it first loads the
-    frozen JEPA weights the probe was trained on (ROADMAP.md §3)."""
+    frozen JEPA weights the probe was trained on (ROADMAP.md §3). Under a
+    process group every rank sets up; rank 0 alone reconstructs and writes."""
     cfg = args if isinstance(args, ExperimentConfig) else load_config(args)
     logger = get_logger("avjepa_tpu_torch")
     device = resolve_device(device)
     handles, state, _ = setup_probe(cfg, device)
+    folder = cfg.logging.folder
+    out_path = os.path.join(folder, "avprediction_example.npz")
+    if not dist.is_main():
+        handles.loader.close()
+        dist.barrier()
+        return out_path
     try:
-        folder = cfg.logging.folder
+        return _example(cfg, device, logger, handles, state, out_path)
+    finally:
+        dist.barrier()
+
+
+def _example(cfg: ExperimentConfig, device: torch.device, logger, handles, state,
+             out_path: str) -> str:
+    folder = cfg.logging.folder
+    try:
         os.makedirs(folder, exist_ok=True)
         restore_jepa_weights(handles, cfg, logger)
         if os.path.isfile(probe_path(cfg)):
@@ -244,7 +272,6 @@ def example_main(args, resume_preempt: bool = False, device: str | torch.device 
     video_recon = video_recon[0].cpu().numpy()
     audio_recon = None if audio_recon is None else audio_recon[0].cpu().numpy()
 
-    out_path = os.path.join(folder, "avprediction_example.npz")
     np.savez(out_path, video=np.asarray(video[0]), video_recon=video_recon,
              audio=np.asarray(audio[0]) if audio is not None else np.zeros(1),
              audio_recon=audio_recon if audio_recon is not None else np.zeros(1))

@@ -1,6 +1,8 @@
-"""JEPA pretraining runner: the ``avjepa`` and ``vjepa`` apps, on one device.
+"""JEPA pretraining runner: the ``avjepa`` and ``vjepa`` apps, data parallel.
 
     python -m avjepa_tpu_torch.app.main --fname configs/pretrain/av-vitl16.yaml
+    python -m avjepa_tpu_torch.app.main_distributed --nproc-per-node 8 \
+        --fname configs/pretrain/av-vitl16.yaml
 
 Counterpart of ``avjepa_tpu/train/pretrain.py`` with the same loop shape:
 epochs x iterations-per-epoch over a loader that restarts when exhausted,
@@ -11,6 +13,16 @@ last epoch, at ``max_steps`` and on SIGTERM, and resume with
 files: ``<folder>/<tag>-latest.pth.tar``, and ``<tag>-ep<N>.pth.tar`` every
 ``save_every_freq`` epochs (reference: app/avjepa/train.py:332-350,639-644).
 The models keep f32 parameters and compute in ``meta.dtype``.
+
+With a process group (``parallel/dist.py``, one process per GPU) each rank
+loads ``data.batch_size`` samples from its shard of the sampler, so the
+global batch is ``batch_size`` times the world, as in the JAX package
+(``avjepa_tpu/train/pretrain.py:300-306``); every rank's collator draws the
+same masks for its local batch from the same seed. Rank 0's initial weights
+are broadcast. Each rank writes ``<tag>_r{rank}.csv`` with the global loss;
+rank 0 alone writes the checkpoints (``world_size`` set), and every rank
+reads them on resume. A SIGTERM on any rank is agreed on every 8 steps, at
+the same step on every rank, so all ranks checkpoint and stop together.
 """
 
 from __future__ import annotations
@@ -31,12 +43,14 @@ from avjepa_tpu_torch.masks.multiblock3d import MaskSet, make_mask_collator, sta
 from avjepa_tpu_torch.models.encoder import Encoder
 from avjepa_tpu_torch.models.factory import DTYPES, make_encoder, make_predictor
 from avjepa_tpu_torch.models.predictor import Predictor
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.optim import ScheduleConfig
 from avjepa_tpu_torch.train.state import TrainState, init_state
 from avjepa_tpu_torch.train.step import StepConfig, train_step
 from avjepa_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from avjepa_tpu_torch.utils.device import resolve_device
 from avjepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, StepTimer, get_logger
+from avjepa_tpu_torch.utils.monitoring import ResourceMonitor
 
 CSV_COLUMNS = (
     ("%d", "epoch"), ("%d", "itr"), ("%.5f", "loss"), ("%.5f", "loss-jepa"),
@@ -145,8 +159,11 @@ class TrainHandles:
 
 
 def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
+    dist.make_mesh(cfg.tpu.mesh_data, cfg.tpu.mesh_fsdp, cfg.tpu.mesh_tensor)
     layout = cfg.layout()
     encoder, predictor = build_models(cfg, layout)
+    for module in (encoder, predictor):
+        dist.broadcast_module(module.to(device))
     state = init_state(encoder.to(device), predictor.to(device),
                        betas=tuple(cfg.optimization.betas), eps=cfg.optimization.eps)
     opt = cfg.optimization
@@ -164,8 +181,10 @@ def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
     weights = None
     if cfg.data.datasets_weights is not None and hasattr(dataset, "sample_weights"):
         weights = dataset.sample_weights(cfg.data.datasets_weights)
+    # data.batch_size is per GPU: each rank loads its shard's local batch
     sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=True,
-                             seed=cfg.meta.seed, weights=weights)
+                             seed=cfg.meta.seed, num_shards=dist.world(),
+                             shard_index=dist.rank(), weights=weights)
     loader = BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
                          mask_collator=collator)
     return TrainHandles(cfg, device, state, sched, step_cfg, loader, collator)
@@ -176,26 +195,36 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     """The pretraining loop; returns summary metrics."""
     logger = get_logger("avjepa_tpu_torch")
     device = resolve_device(device)
+    rank = dist.rank()
+    # the raw SIGTERM flag of this rank; the loop acts on the value agreed
+    # over the ranks, polled at the same step on each (every 8 steps when
+    # there are several: the agreement is a blocking collective), so that no
+    # rank stops alone while the others wait in the next step's collectives
     preempted = {"flag": False}
+    poll_steps = 8 if dist.world() > 1 else 1
 
     def _on_sigterm(signum, frame):
         preempted["flag"] = True
         logger.warning("SIGTERM received: checkpointing at next step boundary")
+
+    def _preempt_agreed() -> bool:
+        return dist.agree(preempted["flag"]) if dist.world() > 1 else preempted["flag"]
 
     try:
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     except ValueError:  # not the main thread
         prev_handler = None
 
-    handles = data_iter = None
+    handles = data_iter = monitor = None
     try:
-        if cfg.data.log_resource_utilization:
-            logger.warning("data.log_resource_utilization is not ported (see ROADMAP.md)")
-        handles = setup(cfg, device)
-        state = handles.state
         folder, tag = cfg.logging.folder, cfg.logging.write_tag
         os.makedirs(folder, exist_ok=True)
-        csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r0.csv"), *CSV_COLUMNS)
+        if cfg.data.log_resource_utilization:
+            monitor = ResourceMonitor(
+                log_path=os.path.join(folder, f"{tag}_resources_r{rank}.csv")).start()
+        handles = setup(cfg, device)
+        state = handles.state
+        csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r{rank}.csv"), *CSV_COLUMNS)
         latest = os.path.join(folder, f"{tag}-latest.pth.tar")
 
         if cfg.meta.load_checkpoint:
@@ -270,22 +299,30 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"loss is not finite at step {state.step}")
                 total += 1
-                if (max_steps is not None and total >= max_steps) or preempted["flag"]:
+                if max_steps is not None and total >= max_steps:
+                    break
+                if total % poll_steps == 0 and _preempt_agreed():
                     break
             stop = max_steps is not None and total >= max_steps
+            # one agreed reading for the whole epilogue: the raw flag can flip
+            # on one rank while the others are past their poll
+            preempt_now = _preempt_agreed()
             if (epoch % cfg.logging.checkpoint_freq == 0 or epoch == cfg.optimization.epochs - 1
-                    or stop or preempted["flag"]):
+                    or stop or preempt_now):
                 meta = dict(epoch=epoch + 1, loss=loss_meter.avg, batch_size=cfg.data.batch_size,
-                            lr=float(metrics["lr"]))
-                save_train_state(latest, state, **meta)
-                if cfg.logging.save_every_freq > 0 and epoch % cfg.logging.save_every_freq == 0:
-                    save_train_state(os.path.join(folder, f"{tag}-ep{epoch + 1}.pth.tar"),
-                                     state, **meta)
+                            lr=float(metrics["lr"]), world_size=dist.world())
+                if dist.is_main():
+                    save_train_state(latest, state, **meta)
+                    if (cfg.logging.save_every_freq > 0
+                            and epoch % cfg.logging.save_every_freq == 0):
+                        save_train_state(os.path.join(folder, f"{tag}-ep{epoch + 1}.pth.tar"),
+                                         state, **meta)
+                dist.barrier()
             summary = {"epoch": epoch + 1, "avg_loss": loss_meter.avg,
                        "avg_step_ms": time_meter.avg, "step": state.step, "checkpoint": latest}
             if stop:
                 break
-            if preempted["flag"]:
+            if preempt_now:
                 logger.warning(
                     f"preempted: checkpoint saved at step {state.step}; restart with "
                     "meta.load_checkpoint: true to resume"
@@ -295,6 +332,8 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
+        if monitor is not None:
+            monitor.stop()
         if data_iter is not None:
             data_iter.close()  # stops the loader's producer thread
         if handles is not None:

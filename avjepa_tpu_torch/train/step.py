@@ -7,6 +7,17 @@ app/avjepa/train.py:435-537). Every schedule is a function of
 ``state.step``; masks are dense bools, plus the compact index arrays of the
 collator. PyTorch runs it eagerly: the attention layers launch the port's
 CUDA kernels on the GPU, forward and backward.
+
+Data parallel (one process per GPU, ``parallel/dist.py``): each rank runs
+its local batch, and the step equals the JAX step over the global batch.
+The JEPA loss is a masked mean over the global batch, so each rank divides
+its local masked sum by the all-reduced count of masked elements, times the
+world size: the gradients averaged over the ranks are then the global
+mean's. The variance regulariser is a mean over samples, which equal local
+batches keep. One all-reduce averages the encoder's and the predictor's
+gradients after the backward pass, before the norms and the clip, so the
+clip, AdamW and the EMA see the same gradients on every rank and the
+weights stay the same. The logged scalars are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from typing import Optional
 import torch
 
 from avjepa_tpu_torch.models.predictor import scatter_rows
+from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.optim import (
     ScheduleConfig,
     clip_,
@@ -29,7 +41,7 @@ from avjepa_tpu_torch.train.optim import (
     wd_at_step,
 )
 from avjepa_tpu_torch.train.state import TrainState
-from avjepa_tpu_torch.utils.tensors import masked_mean, masked_var
+from avjepa_tpu_torch.utils.tensors import masked_var
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +63,16 @@ def feature_layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def jepa_loss(z: torch.Tensor, h: torch.Tensor, pred_mask: torch.Tensor,
-              loss_exp: float) -> torch.Tensor:
+              loss_exp: float, count: torch.Tensor) -> torch.Tensor:
     """Masked ``mean(|z-h|^loss_exp)/loss_exp`` over target positions
-    (reference: app/avjepa/train.py:490-495)."""
+    (reference: app/avjepa/train.py:490-495): the local masked sum over
+    ``count`` target tokens of the global batch, times the world size (1
+    without a process group), so that the mean over the ranks is the global
+    masked mean."""
     diff = (z.float() - h.float()).abs() ** loss_exp
-    return masked_mean(diff, pred_mask[..., None]) / loss_exp
+    total = (diff * pred_mask[..., None].to(diff.dtype)).sum()
+    denom = (count.to(diff.dtype) * diff.shape[-1]).clamp(min=1.0)
+    return total / denom * dist.world() / loss_exp
 
 
 def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_masks,
@@ -110,10 +127,12 @@ def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_ma
                         gather_idx=None if union_idx is None else union_idx[i], **pred_kwargs)
               for i in range(num_cfgs)]
 
+    # target tokens of each mask config over the global batch
+    counts = dist.reduce(pred_masks.flatten(1).sum(1), "sum")
     loss_jepa = 0.0
     pstd = 0.0
     for i, z in enumerate(zs):
-        loss_jepa = loss_jepa + jepa_loss(z, h, pred_masks[i], cfg.loss_exp)
+        loss_jepa = loss_jepa + jepa_loss(z, h, pred_masks[i], cfg.loss_exp, counts[i])
         # predictor std across target tokens (reference reg_fn, train.py:497-498)
         zv = masked_var(z.float(), pred_masks[i][..., None], dim=1)
         pstd = pstd + torch.sqrt(zv + 1e-4)
@@ -170,6 +189,7 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
                                         enc_idx, union_idx, draws)
     loss.backward()
+    dist.all_reduce_grads([state.encoder, state.predictor])
 
     # per-model global norms; the clip only after warmup (reference:
     # train.py:518-520)
@@ -201,6 +221,14 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
             "input_var": var.mean(),
             "input_var_min": var.min(),
         })
+    # the losses and the input variance are means over the global batch, the
+    # input variance's min a min; the norms and the optimizer statistics
+    # already agree on every rank
+    means = [k for k in ("loss", "loss_jepa", "loss_reg", "input_var") if k in scalars]
+    scalars.update(zip(means, dist.reduce(torch.stack([scalars[k].float() for k in means]),
+                                          "mean").unbind()))
+    if "input_var_min" in scalars:
+        scalars["input_var_min"] = dist.reduce(scalars["input_var_min"].float(), "min")
     values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
                           for v in scalars.values()]).tolist()  # one device sync
     metrics = dict(zip(scalars, values))

@@ -93,8 +93,10 @@ def load_encoder_checkpoint(path: str, prefer: str = "target_encoder") -> dict:
 
 
 def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
-                     lr: float) -> None:
-    """Write ``state`` (a ``train.state.TrainState``) to ``path``, atomically."""
+                     lr: float, world_size: int = 1) -> None:
+    """Write ``state`` (a ``train.state.TrainState``) to ``path``, atomically.
+    ``batch_size`` is per rank and ``world_size`` the number of ranks, as the
+    reference writes them."""
     out = {
         "encoder": state.encoder.state_dict(),
         "predictor": state.predictor.state_dict(),
@@ -104,7 +106,7 @@ def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
         "epoch": epoch,
         "loss": loss,
         "batch_size": batch_size,
-        "world_size": 1,
+        "world_size": world_size,
         "lr": lr,
         "step": state.step,
     }

@@ -8,11 +8,17 @@ gpu_timer); grad/optimizer statistics are computed in train/step.py.
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 
 
-def get_logger(name: str | None = None, rank: int = 0) -> logging.Logger:
+def get_logger(name: str | None = None, rank: int | None = None) -> logging.Logger:
+    """The named logger writing to stdout: INFO on rank 0, ERROR only on the
+    other ranks; ``rank`` defaults to this process's ``RANK`` (torchrun's
+    environment, 0 without it)."""
+    if rank is None:
+        rank = int(os.environ.get("RANK", "0"))
     logger = logging.getLogger(name or "avjepa_tpu")
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)

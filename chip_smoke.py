@@ -55,9 +55,19 @@ exits non-zero:
      frame aggregation (image mode); the image eval at vitl16_in1k.yaml
      through the eval CLI; no attention or LayerNorm kernel runs (the JAX
      evals use the plain attention). Then the classifier's logits in bf16
-     against f32, and the encode, probe and cached probe steps timed.
-Every run of phases 4-5, 9 and 11 is driven with the kernels' launch counts
-set to 0 just before it and asserted just after. The last lines are a JSON
+     against f32, and the encode, probe and cached probe steps timed;
+ 12. data parallel: (a) the ViT-L AV pretrain (av-vitl16.yaml, 4 steps)
+     through app.main, then through ``python -m
+     avjepa_tpu_torch.app.main_distributed --nproc-per-node 1`` (one rank
+     over NCCL) batch-launching it with the video eval on its checkpoint,
+     then relaunched with ``--resume-preempt``: NCCL, K1/K2 launches,
+     losses equal to app.main's, the resume, one gradient all-reduce a
+     step, both entries' step ms; (b) two ranks on the one card over gloo
+     (NCCL takes one rank a device) at batch 12 each against one process
+     at batch 24 on the same global batch and masks: two steps' loss and
+     grad norms, the ranks' weights the same to the bit, the ms a step.
+Every run of phases 4-5, 9, 11 and 12 is driven with the kernels' launch
+counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
 
@@ -1483,6 +1493,310 @@ def run_evals(workdir: str, ckpt: str) -> dict:
     return result
 
 
+# phase 12: data parallel. Loss and grad norms of world 2 against world 1 on
+# the same global batch: the tolerances of the kernel-vs-plain step check
+# (the two sum the batch in other orders, in bf16 through 36 layers)
+DP_LOSS_REL_TOL = STEP_LOSS_REL_TOL
+DP_NORM_REL_TOL = STEP_NORM_REL_TOL
+# losses through main_distributed at world 1 against app.main's
+DP_WORLD1_ABS_TOL = 1e-3
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return [r for r in csv.DictReader(f) if r["epoch"] != "epoch"]
+
+
+def _launch_distributed(workdir: str, label: str, *argv) -> tuple[str, dict]:
+    """``python -m avjepa_tpu_torch.app.main_distributed --nproc-per-node 1``
+    with ``argv``; its output goes to chiprun_out/dp_<label>.log. Returns
+    the output and rank 0's report."""
+    report_dir = os.path.join(workdir, f"report-{label}")
+    cmd = [sys.executable, "-m", "avjepa_tpu_torch.app.main_distributed", "--nproc-per-node",
+           "1", "--report-dir", report_dir, *argv]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=400)
+    out = res.stdout + res.stderr
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"dp_{label}.log"), "w") as f:
+        f.write(out)
+    if res.returncode != 0:
+        raise AssertionError(f"main_distributed ({label}) exited {res.returncode}:\n"
+                             f"{out[-3000:]}")
+    with open(os.path.join(report_dir, "report_r0.json")) as f:
+        return out, json.load(f)
+
+
+def _median_step_ms(rows: list) -> float:
+    import statistics
+
+    return statistics.median(float(r["step-time-ms"]) for r in rows[1:])
+
+
+def run_distributed_world1(workdir: str) -> dict:
+    """Phase 12 (a): ViT-L/16 AV pretrain (av-vitl16.yaml at full width,
+    bf16, batch 24, remat, synthetic clips) for 4 steps (one epoch of 4: one
+    checkpoint) through app.main in this process, then through
+    ``main_distributed --nproc-per-node 1`` (one rank over NCCL)
+    batch-launching the same config and the video eval
+    (vitl16_k400_16x8x3.yaml cut to one epoch of 16 probe steps and 2
+    segments x 1 view, as phase 11's frame-aggregation run) on that run's
+    checkpoint; then the pretrain relaunched with ``--resume-preempt`` and
+    a second epoch. Asserts NCCL, the K1/K2 launches, losses within
+    DP_WORLD1_ABS_TOL of app.main's, the resume and the eval's top-1;
+    prints the median step ms of both entries."""
+    import yaml
+
+    from avjepa_tpu_torch.app.main import launch
+    from avjepa_tpu_torch.ops import flash_attention as fa
+
+    folder_app = os.path.join(workdir, "dp-app")
+    folder_dp = os.path.join(workdir, "dp-nccl")
+    paths = {}
+    for epochs in (1, 2):
+        d = _pretrain_cfg("av-vitl16.yaml", workdir, optimization={"ipe": 4, "epochs": epochs})
+        d["logging"]["folder"] = folder_app
+        paths[epochs] = os.path.join(workdir, f"dp-pretrain-{epochs}.yaml")
+        with open(paths[epochs], "w") as f:
+            yaml.safe_dump(d, f)
+    tag = d["logging"]["write_tag"]
+    ev = _eval_cfg("vitl16_k400_16x8x3.yaml", workdir,
+                   os.path.join(folder_dp, f"{tag}-latest.pth.tar"), "dp-k400", num_epochs=1)
+    ev["data"].update(num_segments=2, num_views_per_segment=1)
+    paths["eval"] = os.path.join(workdir, "dp-eval.yaml")
+    with open(paths["eval"], "w") as f:
+        yaml.safe_dump(ev, f)
+
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    launch(paths[1])
+    app_launches = dict(fa.LAUNCHES)
+    app_rows = _csv_rows(os.path.join(folder_app, f"{tag}_r0.csv"))
+
+    t0 = time.perf_counter()
+    out, report = _launch_distributed(workdir, "world1", "--batch-launch", "--folder", folder_dp,
+                                      "--fname", paths[1], paths["eval"])
+    wall = time.perf_counter() - t0
+    rows = _csv_rows(os.path.join(folder_dp, f"{tag}_r0.csv"))
+    want = {"fwd_packed": 4 * 144, "bwd_packed": 4 * 60}
+    got = {k: report["launches"][k] for k in want}
+    print(f"dp: world 1 through main_distributed: backend {report['backend']}, world "
+          f"{report['world']}, device {report['device']}; launches {report['launches']} "
+          f"(expected {want} from the pretrain, none from the eval; app.main's {app_launches}); "
+          f"reductions {report['reductions']}; {wall:.1f} s for both runs (process start, "
+          f"init, data, checkpoint and eval included)")
+    losses = [float(r["loss"]) for r in rows]
+    app_losses = [float(r["loss"]) for r in app_rows]
+    diff = max(abs(a - b) for a, b in zip(losses, app_losses))
+    print(f"dp: losses through main_distributed {losses}, app.main {app_losses}: max abs "
+          f"diff {diff:.3e} (tol {DP_WORLD1_ABS_TOL:g})")
+    if len(losses) != 4 or len(app_losses) != 4 or diff > DP_WORLD1_ABS_TOL:
+        raise AssertionError("main_distributed's losses differ from app.main's")
+    # one gradient all-reduce a step: 4 pretrain steps, 16 probe steps
+    if report["reductions"].get("grads") != 4 + 16:
+        raise AssertionError(f"{report['reductions']} gradient all-reduces for 4 pretrain "
+                             "and 16 probe steps")
+    if report["backend"] != "nccl" or report["world"] != 1:
+        raise AssertionError(f"main_distributed did not run one NCCL rank: {report}")
+    if got != want or {k: app_launches[k] for k in want} != want:
+        raise AssertionError(f"launch counts differ: main_distributed {got}, app.main "
+                             f"{app_launches}, expected {want}")
+    top1 = report["summaries"][1].get("val_top1")
+    if top1 is None or not 0 <= top1 <= 100 or "[eval] val top-1" not in out:
+        raise AssertionError(f"the batch-launched eval did not validate: {report['summaries']}")
+    ms, app_ms = _median_step_ms(rows), _median_step_ms(app_rows)
+    print(f"dp: ViT-L AV step through main_distributed (one NCCL rank) {ms:.1f} ms, app.main "
+          f"{app_ms:.1f} ms (median of steps 2-4 of the CSV's step-time-ms, host clock to the "
+          f"step's sync, batch 24); eval top-1 {top1:.2f}% (synthetic); {card_line()}")
+
+    out, report = _launch_distributed(workdir, "resume", "--resume-preempt", "--folder",
+                                      folder_dp, "--fname", paths[2])
+    rows = _csv_rows(os.path.join(folder_dp, f"{tag}_r0.csv"))
+    if "resumed from step 4 " not in out or len(rows) != 8:
+        raise AssertionError(f"--resume-preempt did not resume at step 4 ({len(rows)} rows)")
+    if report["launches"]["fwd_packed"] != 4 * 144:
+        raise AssertionError(f"resumed run launches {report['launches']}")
+    print(f"dp: --resume-preempt resumed from step 4 and ran steps 5-8, losses "
+          f"{[float(r['loss']) for r in rows[4:]]}; phase 12 (a) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": got, "step_ms": ms, "app_step_ms": app_ms, "wall_s": wall}
+
+
+def _dp_cfg(workdir: str, batch: int) -> dict:
+    return _pretrain_cfg("av-vitl16.yaml", workdir, data={"batch_size": batch, "num_workers": 2})
+
+
+def _digest(modules) -> str:
+    """A fingerprint of the modules' f32 weights, computed on the device:
+    for each tensor the sum of its bit patterns as integers, plain and
+    weighted by position (wrapping in int64), so that any changed bit shows."""
+    import hashlib
+
+    import torch
+
+    sums = []
+    for m in modules:
+        for v in m.state_dict().values():
+            bits = v.detach().reshape(-1).view(torch.int32).long()
+            pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+            sums += [bits.sum(), (bits * pos).sum()]
+    return hashlib.sha256(str(torch.stack(sums).tolist()).encode()).hexdigest()
+
+
+def _dp_steps(h, inputs: dict, steps: int = 2) -> list:
+    """``steps`` train steps on ``inputs``; each step's loss, grad norms,
+    gradient all-reduces, weight digest and ms (host clock to a sync)."""
+    import torch
+
+    from avjepa_tpu_torch.parallel import dist
+    from avjepa_tpu_torch.train.step import train_step
+
+    out = []
+    for _ in range(steps):
+        before = dist.REDUCTIONS["grads"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(h.state, h.sched, h.step_cfg, **inputs)
+        torch.cuda.synchronize()
+        out.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"],
+                    "enc_grad_norm": m["enc_grad_norm"], "pred_grad_norm": m["pred_grad_norm"],
+                    "reductions": dist.REDUCTIONS["grads"] - before,
+                    "digest": _digest([h.state.encoder, h.state.predictor,
+                                       h.state.target_encoder])})
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of phase 12 (b), run in a process of its own: gloo over the
+    CUDA tensors of cuda:0 (NCCL refuses two ranks on one device), ViT-L AV
+    at batch 24 / world a rank; the global batch from dp-batch.npz, this
+    rank's rows of it; two steps; result to dp-rank<rank>.json."""
+    import numpy as np
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.masks.multiblock3d import MaskSet
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.parallel import dist
+    from avjepa_tpu_torch.train import pretrain
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    device = dist.init_distributed("cuda:0", backend="gloo", timeout_s=300)
+    try:
+        h = pretrain.setup(load_config(_dp_cfg(workdir, 24 // world)), device)
+        h.loader.close()
+        z = np.load(os.path.join(workdir, "dp-batch.npz"))
+        masks = [MaskSet(enc=z[f"enc{i}"], pred=z[f"pred{i}"], enc_idx=z[f"idx{i}"],
+                         union_idx=z[f"union{i}"]) for i in range(len(h.cfg.mask))]
+        full = h.to_device(z["video"], z["audio"], masks)
+        b = 24 // world
+        rows = slice(rank * b, (rank + 1) * b)
+        local = dict(video=full["video"][rows], audio=full["audio"][rows],
+                     enc_masks=full["enc_masks"][:, rows], pred_masks=full["pred_masks"][:, rows],
+                     enc_idx=tuple(i[rows] for i in full["enc_idx"]),
+                     union_idx=full["union_idx"][:, rows])
+        fa.reset_launches()
+        steps = _dp_steps(h, local)
+        result = {"backend": torch.distributed.get_backend(), "world": dist.world(),
+                  "steps": steps, "launches": dict(fa.LAUNCHES),
+                  "pred_counts": local["pred_masks"].flatten(1).sum(1).tolist()}
+        with open(os.path.join(workdir, f"dp-rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.shutdown()
+
+
+def run_distributed_world2(workdir: str) -> dict:
+    """Phase 12 (b): two ranks on the one card over gloo, ViT-L AV at batch
+    12 a rank, against one process at batch 24 on the same global batch,
+    masks and initial weights (the synthetic loader's first batch), two
+    steps each: loss within DP_LOSS_REL_TOL and grad norms within
+    DP_NORM_REL_TOL, one gradient all-reduce a step, both ranks' weights
+    the same to the bit after every step; prints the ms a step."""
+    import numpy as np
+    import socket
+
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+
+    t_phase = time.perf_counter()
+    h = pretrain.setup(load_config(_dp_cfg(workdir, 24)), torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    arrays = {"video": video, "audio": audio}
+    for i, m in enumerate(masks):
+        arrays.update({f"enc{i}": m.enc, f"pred{i}": m.pred, f"idx{i}": m.enc_idx,
+                       f"union{i}": m.union_idx})
+    np.savez(os.path.join(workdir, "dp-batch.npz"), **arrays)
+    ref = _dp_steps(h, h.to_device(video, audio, masks))
+    del h
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({r}, 2, {port}, "
+                               f"{workdir!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "dp_world2.log"), "w") as f:
+        f.write("\n".join(outs))
+    if any(p.returncode for p in procs):
+        raise AssertionError("a world-2 rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"dp-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"dp: world 2 on one card: backend {ranks[0]['backend']} over CUDA tensors, world "
+          f"{ranks[0]['world']}; target tokens a mask config, rank 0 {ranks[0]['pred_counts']}, "
+          f"rank 1 {ranks[1]['pred_counts']}; launches a rank {ranks[0]['launches']}")
+    if ranks[0]["backend"] != "gloo" or ranks[0]["world"] != 2:
+        raise AssertionError(f"world 2 did not run over gloo: {ranks[0]}")
+    for i, want in enumerate(ref):
+        got, other = ranks[0]["steps"][i], ranks[1]["steps"][i]
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+        print(f"dp: step {i + 1}: world 2 loss {got['loss']:.6f}, enc grad norm "
+              f"{got['enc_grad_norm']:.4e}, pred {got['pred_grad_norm']:.4e}; world 1 "
+              f"{want['loss']:.6f}, {want['enc_grad_norm']:.4e}, {want['pred_grad_norm']:.4e}; "
+              f"rel {', '.join(f'{v:.2e}' for v in rel.values())} (tol {DP_LOSS_REL_TOL:g}, "
+              f"{DP_NORM_REL_TOL:g}); gradient all-reduces {got['reductions']} and "
+              f"{other['reductions']}; ranks' weights the same: "
+              f"{got['digest'] == other['digest']}; {got['ms']:.1f} / {other['ms']:.1f} ms a "
+              f"step (world 1 at batch 24: {want['ms']:.1f} ms)")
+        if rel["loss"] > DP_LOSS_REL_TOL or max(rel["enc_grad_norm"],
+                                                rel["pred_grad_norm"]) > DP_NORM_REL_TOL:
+            raise AssertionError("the world-2 step disagrees with the world-1 step")
+        if got["reductions"] != 1 or other["reductions"] != 1:
+            raise AssertionError("not one gradient all-reduce a step")
+        if got["digest"] != other["digest"] or got["loss"] != other["loss"]:
+            raise AssertionError("the ranks' weights or losses differ")
+    if not all(r["launches"]["fwd_packed"] and r["launches"]["bwd_packed"] for r in ranks):
+        raise AssertionError(f"world 2 did not launch K1/K2: {ranks[0]['launches']}")
+    ms = ranks[0]["steps"][1]["ms"]
+    print(f"dp: world 2 (gloo, two ranks on one card, batch 12 each) {ms:.1f} ms a step "
+          f"(step 2, host clock to a sync); phase 12 (b) took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return {"step_ms": ms, "ref_ms": ref[1]["ms"]}
+
+
 def main() -> None:
     try:
         import torch
@@ -1510,6 +1824,10 @@ def main() -> None:
         t0 = time.perf_counter()
         run_evals(workdir, train["ckpt"])
         print(f"evals: phase 11 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_distributed_world1(workdir)
+        run_distributed_world2(workdir)
+        print(f"dp: phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)

@@ -41,6 +41,7 @@ from avjepa_tpu.train.step import make_train_step
 from avjepa_tpu.train.step import stack_masksets as jax_stack_masksets
 from avjepa_tpu.utils import tensors as jax_tensors
 from avjepa_tpu.utils import torch_import as jax_torch_import
+from avjepa_tpu.utils import monitoring as jax_monitoring
 from avjepa_tpu_torch.app.main import launch
 from avjepa_tpu_torch.data import mel, randaugment, transforms
 from avjepa_tpu_torch.data.av_dataset import sample_clip_indices
@@ -56,7 +57,7 @@ from avjepa_tpu_torch.train import optim
 from avjepa_tpu_torch.train.state import init_state
 from avjepa_tpu_torch.train.step import StepConfig, train_step
 from avjepa_tpu_torch.utils import tensors
-from avjepa_tpu_torch.utils import torch_import
+from avjepa_tpu_torch.utils import monitoring, torch_import
 from avjepa_tpu_torch.utils.checkpoint import encoder_from_jax_params, predictor_from_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -505,8 +506,9 @@ def test_host_module_copies_match_originals():
     want = jax_transforms.VideoTransform(crop_size=32, auto_augment=True)(
         clip.copy(), np.random.default_rng(3))
     np.testing.assert_array_equal(got, want)
-    src = []
-    for module in (randaugment, jax_randaugment):
-        with open(module.__file__) as f:
-            src.append(f.read().split('"""', 2)[2])  # the code after the docstring
-    assert src[0] == src[1]
+    for ours, theirs in ((randaugment, jax_randaugment), (monitoring, jax_monitoring)):
+        src = []
+        for module in (ours, theirs):
+            with open(module.__file__) as f:
+                src.append(f.read().split('"""', 2)[2])  # the code after the docstring
+        assert src[0] == src[1], ours.__name__
