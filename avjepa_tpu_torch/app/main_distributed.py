@@ -22,8 +22,14 @@ run in order under ``--batch-launch``; ``--folder`` overrides each config's
 ``logging.folder``; ``--resume-preempt`` (or ``AVJEPA_RESUME_PREEMPT``)
 resumes each run from its latest checkpoint; eval configs (those with an
 ``eval_name``) go to the eval registry. ``--report-dir`` writes each rank's
-``report_r{rank}.json``: its world, backend and device, each run's summary
-and the kernels' launch counts in this process.
+``report_r{rank}.json``: its world, backend and device, each run's summary,
+the kernels' launch counts and the collectives in this process, and its
+peak device memory.
+
+A pretrain or avprediction config with ``tpu.mesh_fsdp: N`` shards the
+models over N ranks (``parallel/fsdp.py``; with ``mesh_data`` also
+above 1, FSDP2's HSDP); the classification evals ignore the mesh keys and
+stay data parallel, as the JAX evals run on ``eval_mesh``.
 """
 
 from __future__ import annotations
@@ -188,6 +194,7 @@ def main(argv=None):
 
 
 def _report(folder: str, device, summaries: list) -> None:
+    import torch
     import torch.distributed
 
     from avjepa_tpu_torch.ops import flash_attention, layer_norm
@@ -200,6 +207,8 @@ def _report(folder: str, device, summaries: list) -> None:
         "summaries": summaries,
         "launches": {**flash_attention.LAUNCHES, **layer_norm.LAUNCHES},
         "reductions": dict(dist.REDUCTIONS),
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                     if torch.device(device).type == "cuda" else None),
     }
     with open(os.path.join(folder, f"report_r{dist.rank()}.json"), "w") as f:
         json.dump(report, f, default=str)

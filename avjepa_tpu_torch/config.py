@@ -7,8 +7,10 @@ dataclasses, defaults and section aliases, validated against the port's own
 ``mask_type``, ``compact_context``, ``compact_predictor``,
 ``sticky_mask_buckets`` and ``light_metrics`` mean the same on the GPU; of
 the mesh knobs, ``mesh_data`` is the data axis over the process group (one
-process per GPU, ``parallel/dist.py::make_mesh``: -1 takes every rank), and
-``mesh_fsdp`` or ``mesh_tensor`` above 1 raises (not ported yet).
+process per GPU, ``parallel/dist.py::make_mesh``: -1 takes what is left),
+``mesh_fsdp`` shards the models over that many ranks
+(``parallel/fsdp.py``, FSDP2), and ``mesh_tensor`` above 1 raises (not
+ported yet).
 """
 
 from __future__ import annotations

@@ -22,7 +22,8 @@ full-frame video MSE and PSNR (fixed range 4.0: normalized pixels span about
 ``top_db=80``). The summary keys are the JAX package's.
 
 Data parallel (``parallel/dist.py``): each rank scores its shard of the
-sampler, and the MSEs are averaged over every rank's batches.
+sampler, and the MSEs are averaged over every rank's batches; under
+``tpu.mesh_fsdp`` the frozen models are sharded as the app shards them.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Data parallelism over ``torch.distributed``: the port's counterpart of the
-data axis of ``avjepa_tpu/parallel/mesh.py``.
+data and fsdp axes of ``avjepa_tpu/parallel/mesh.py``.
 
 The JAX package builds a ``('data', 'fsdp', 'tensor')`` mesh over every
 device of every host and lets XLA insert the collectives: its loss is a mean
@@ -9,10 +9,12 @@ drives one GPU (torchrun's layout: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 collectives are explicit:
   - ``init_distributed``: join the process group (NCCL on CUDA, gloo when the
     CPU is asked for) and bind this rank's GPU;
-  - ``make_mesh``: check a config's mesh against the world; only the data
-    axis is ported (``fsdp`` and ``tensor`` raise);
+  - ``make_mesh``: check a config's mesh against the world; with ``fsdp >
+    1`` also build the ``DeviceMesh`` that ``parallel/fsdp.py`` shards the
+    models over (``tensor`` raises: not ported);
   - ``all_reduce_grads``: the gradients of a step averaged over the ranks in
-    one all-reduce of their flattened concatenation;
+    one all-reduce of their flattened concatenation (FSDP2's reduce-scatter
+    averages those of the sharded models);
   - ``reduce``: a tensor summed, averaged, or its min or max over the ranks
     (the metrics a step logs);
   - ``count_correct`` / ``count_valid``: an eval's top-1 counts over the
@@ -36,6 +38,8 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor
 
 REDUCTIONS: collections.Counter = collections.Counter()
 
@@ -106,22 +110,33 @@ class Mesh:
     data: int
     fsdp: int = 1
     tensor: int = 1
+    # the ranks as a ('data', 'fsdp') DeviceMesh (('fsdp',) when data is 1),
+    # built when fsdp > 1: FSDP2 replicates over 'data' and shards over 'fsdp'
+    device_mesh: Optional[DeviceMesh] = dataclasses.field(default=None, compare=False, repr=False)
 
 
-def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1) -> Mesh:
+def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
+              device: str | torch.device = "cpu") -> Mesh:
     """The config's ``tpu.mesh_*`` axes checked against the world: ``data ==
-    -1`` takes every rank, and the axes must multiply to the world size
-    (``mesh.py:72-86``). Only the data axis is ported."""
-    if fsdp > 1 or tensor > 1:
+    -1`` takes what is left, and the axes must multiply to the world size
+    (``mesh.py:72-86``). With ``fsdp > 1`` the mesh carries a ``DeviceMesh``
+    of ``device``'s type over the ranks, row-major as JAX lays its devices
+    out: rank ``r`` is data replica ``r // fsdp``, shard ``r % fsdp``. The
+    tensor axis is not ported."""
+    if tensor > 1:
         raise NotImplementedError(
-            f"mesh_fsdp={fsdp}, mesh_tensor={tensor}: avjepa_tpu_torch has only the data "
-            "axis (one process per GPU); the fsdp and tensor axes are queued in ROADMAP.md")
+            f"mesh_tensor={tensor}: avjepa_tpu_torch has the data and fsdp axes only; the "
+            "tensor axis is queued in ROADMAP.md")
     n = world()
     if data == -1:
-        data = n // (fsdp * tensor)
+        data = n // fsdp
     if data * fsdp * tensor != n:
         raise ValueError(f"mesh {data}x{fsdp}x{tensor} != {n} processes")
-    return Mesh(data, fsdp, tensor)
+    device_mesh = None
+    if fsdp > 1:
+        shape, names = ((data, fsdp), ("data", "fsdp")) if data > 1 else ((fsdp,), ("fsdp",))
+        device_mesh = init_device_mesh(torch.device(device).type, shape, mesh_dim_names=names)
+    return Mesh(data, fsdp, tensor, device_mesh)
 
 
 def all_reduce_grads(modules: Iterable[nn.Module]) -> None:
@@ -129,10 +144,12 @@ def all_reduce_grads(modules: Iterable[nn.Module]) -> None:
     of their concatenation, after the backward pass and before any norm or
     clip reads them. Each ``p.grad`` becomes a view of the reduced buffer.
     Every rank must hold gradients for the same parameters (the same graph),
-    all of one dtype."""
+    all of one dtype. FSDP2's sharded parameters (DTensors) are left out:
+    its reduce-scatter in the backward pass averaged them already."""
     if not active():
         return
-    params = [p for m in modules for p in m.parameters() if p.grad is not None]
+    params = [p for m in modules for p in m.parameters()
+              if p.grad is not None and not isinstance(p, DTensor)]
     if not params:
         return
     if len({p.grad.dtype for p in params}) > 1:

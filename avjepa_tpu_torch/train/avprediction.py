@@ -26,7 +26,11 @@ Data parallel (``parallel/dist.py``): each rank trains on its shard of the
 pretrain app's sampler, the probe's gradients are averaged over the ranks
 in one all-reduce (the frozen models have none), the logged losses are the
 global means, each rank writes ``<tag>_probe_r{rank}.csv``, and rank 0 alone
-writes the probe checkpoint and the example's files.
+writes the probe checkpoint and the example's files. Under ``tpu.mesh_fsdp``
+the frozen target encoder and predictor are sharded
+(``parallel/fsdp.py``, as ``avjepa_tpu/train/avprediction.py:123-140``
+shards them) and the JEPA checkpoint is loaded into the shards; the probe
+stays replicated.
 """
 
 from __future__ import annotations

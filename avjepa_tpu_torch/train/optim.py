@@ -10,7 +10,8 @@ LayerNorm weights, which are 2-D ``[L, D]`` leaves of its depth-stacked
 blocks (the PyTorch reference, app/avjepa/utils.py:245-263, decays no
 LayerNorm weight); lr and wd are set on its groups every step. The
 classification evals' classifier is not depth-stacked in JAX either, so its
-groups follow ``wd_mask`` as written (``plain_decays``).
+groups follow ``wd_mask`` as written (``plain_decays``). Under the fsdp axis
+(``parallel/fsdp.py``) the norms, the clip and the EMA work on local shards.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Iterable
 
 import torch
 from torch import nn
+
+from avjepa_tpu_torch.parallel import fsdp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,21 +113,31 @@ def set_lr_wd(optimizer: torch.optim.Optimizer, lr: float, wd: float) -> None:
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all gradients (f32)."""
+    """L2 norm over all gradients (f32), sharded or not."""
     if not grads:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    return torch.linalg.vector_norm(fsdp.leaf_norms(grads))
 
 
-def clip_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
-    """torch.nn.utils.clip_grad_norm_ semantics on a precomputed norm."""
-    torch._foreach_mul_(grads, torch.clamp(max_norm / (norm + 1e-6), max=1.0))
+def clip_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """torch.nn.utils.clip_grad_norm_ semantics on a precomputed norm; each
+    rank scales its shards. Returns the factor applied."""
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    torch._foreach_mul_([fsdp.local(g) for g in grads], scale)
+    return scale
 
 
 @torch.no_grad()
 def ema_update_(target: nn.Module, online: nn.Module, m: float) -> None:
-    """target <- m * target + (1 - m) * online, over all parameters."""
+    """target <- m * target + (1 - m) * online, over all parameters; shard
+    by shard (no collective) where the two are sharded alike."""
     tgt = list(target.parameters())
     src = list(online.parameters())
+    for t, s in zip(tgt, src):
+        if fsdp.is_sharded(t) or fsdp.is_sharded(s):
+            if not (fsdp.is_sharded(t) and fsdp.is_sharded(s) and t.placements == s.placements
+                    and t.device_mesh == s.device_mesh):
+                raise ValueError("the target encoder is not sharded as the encoder is")
+    tgt, src = [fsdp.local(t) for t in tgt], [fsdp.local(s) for s in src]
     torch._foreach_mul_(tgt, m)
     torch._foreach_add_(tgt, src, alpha=1.0 - m)

@@ -23,6 +23,10 @@ are broadcast. Each rank writes ``<tag>_r{rank}.csv`` with the global loss;
 rank 0 alone writes the checkpoints (``world_size`` set), and every rank
 reads them on resume. A SIGTERM on any rank is agreed on every 8 steps, at
 the same step on every rank, so all ranks checkpoint and stop together.
+With ``tpu.mesh_fsdp > 1`` the three models are sharded
+(``parallel/fsdp.py``): every rank takes part in gathering the state that
+rank 0 writes, and a resume re-shards the whole state every rank reads, so
+a checkpoint crosses between fsdp, data and one process.
 """
 
 from __future__ import annotations
@@ -159,13 +163,14 @@ class TrainHandles:
 
 
 def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
-    dist.make_mesh(cfg.tpu.mesh_data, cfg.tpu.mesh_fsdp, cfg.tpu.mesh_tensor)
+    mesh = dist.make_mesh(cfg.tpu.mesh_data, cfg.tpu.mesh_fsdp, cfg.tpu.mesh_tensor, device)
     layout = cfg.layout()
     encoder, predictor = build_models(cfg, layout)
     for module in (encoder, predictor):
         dist.broadcast_module(module.to(device))
     state = init_state(encoder.to(device), predictor.to(device),
-                       betas=tuple(cfg.optimization.betas), eps=cfg.optimization.eps)
+                       betas=tuple(cfg.optimization.betas), eps=cfg.optimization.eps,
+                       mesh=mesh.device_mesh)
     opt = cfg.optimization
     sched = ScheduleConfig(
         ipe=opt.ipe, num_epochs=opt.epochs, ipe_scale=opt.ipe_scale, warmup_epochs=opt.warmup,
@@ -311,12 +316,11 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                     or stop or preempt_now):
                 meta = dict(epoch=epoch + 1, loss=loss_meter.avg, batch_size=cfg.data.batch_size,
                             lr=float(metrics["lr"]), world_size=dist.world())
-                if dist.is_main():
-                    save_train_state(latest, state, **meta)
-                    if (cfg.logging.save_every_freq > 0
-                            and epoch % cfg.logging.save_every_freq == 0):
-                        save_train_state(os.path.join(folder, f"{tag}-ep{epoch + 1}.pth.tar"),
-                                         state, **meta)
+                # every rank gathers the sharded state; rank 0 writes
+                save_train_state(latest, state, **meta)
+                if cfg.logging.save_every_freq > 0 and epoch % cfg.logging.save_every_freq == 0:
+                    save_train_state(os.path.join(folder, f"{tag}-ep{epoch + 1}.pth.tar"),
+                                     state, **meta)
                 dist.barrier()
             summary = {"epoch": epoch + 1, "avg_loss": loss_meter.avg,
                        "avg_step_ms": time_meter.avg, "step": state.step, "checkpoint": latest}

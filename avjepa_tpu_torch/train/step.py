@@ -18,6 +18,14 @@ batches keep. One all-reduce averages the encoder's and the predictor's
 gradients after the backward pass, before the norms and the clip, so the
 clip, AdamW and the EMA see the same gradients on every rank and the
 weights stay the same. The logged scalars are reduced over the ranks.
+
+Under the fsdp axis (``parallel/fsdp.py``) the models' parameters,
+gradients and AdamW moments are sharded: FSDP2's reduce-scatter averages the
+gradients in the backward pass and the all-reduce leaves them alone, so no
+gradient is averaged twice. The per-parameter
+gradient norms (for the global norms, the clip and ``grad_stats``) and the
+moments' |x| sums come from the local shards and one all-reduce each over
+the shard group; the clip and the EMA scale shard by shard.
 """
 
 from __future__ import annotations
@@ -28,14 +36,13 @@ from typing import Optional
 import torch
 
 from avjepa_tpu_torch.models.predictor import scatter_rows
-from avjepa_tpu_torch.parallel import dist
+from avjepa_tpu_torch.parallel import dist, fsdp
 from avjepa_tpu_torch.train.optim import (
     ScheduleConfig,
     clip_,
     decays,
     ema_at_step,
     ema_update_,
-    global_norm,
     lr_at_step,
     set_lr_wd,
     wd_at_step,
@@ -145,34 +152,35 @@ def _grads(module: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
     return [(n, p.grad) for n, p in module.named_parameters() if p.grad is not None]
 
 
-def grad_stats(named_grads) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def grad_stats(named_grads, norms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                          torch.Tensor]:
     """The JAX package's grad_stats (``avjepa_tpu/train/step.py:337-362``;
-    reference grad_logger, src/utils/logging.py:91-105): the mean of the
-    per-leaf grad norms over the leaves that decay (``decays``: 2+ dims or a
-    block LayerNorm weight, no bias), and the first and last block's qkv
-    weight grad norm. Leaves are counted as the JAX package counts its own:
-    one entry per block parameter (its stacked leaves count per layer), and
-    one per stream for the mask tokens (an [M, Dp] leaf there)."""
-    kept = [(n, g) for n, g in named_grads if decays(n, g)]
-    norms = torch._foreach_norm([g for _, g in kept]) if kept else []
-    by_name = dict(zip((n for n, _ in kept), norms))
+    reference grad_logger, src/utils/logging.py:91-105) from the gradients'
+    names and their norms (``norms[i]`` of ``named_grads[i]``): the mean of
+    the per-leaf grad norms over the leaves that decay (``decays``: 2+ dims
+    or a block LayerNorm weight, no bias), and the first and last block's
+    qkv weight grad norm. Leaves are counted as the JAX package counts its
+    own: one entry per block parameter (its stacked leaves count per layer),
+    and one per stream for the mask tokens (an [M, Dp] leaf there)."""
+    by_name = {n: v for (n, g), v in zip(named_grads, norms) if decays(n, g)}
     leaves: dict[str, list] = {}
     for n, v in by_name.items():
         leaves.setdefault(n.rsplit(".", 1)[0] if n.startswith("mask_tokens") else n, []).append(v)
     qkv = sorted((n for n in by_name if n.endswith("attn.qkv.weight")),
                  key=lambda n: int(n.split(".")[1]))
-    z = torch.zeros((), device=norms[0].device if norms else "cpu")
+    z = torch.zeros((), device=norms.device)
     avg = torch.stack([v[0] if len(v) == 1 else torch.linalg.vector_norm(torch.stack(v))
-                       for v in leaves.values()]).mean() if norms else z
+                       for v in leaves.values()]).mean() if by_name else z
     return avg, by_name[qkv[0]] if qkv else z, by_name[qkv[-1]] if qkv else z
 
 
-def _abs_mean(optimizer: torch.optim.Optimizer, module: torch.nn.Module, key: str):
-    """Mean over the module's params of mean |moment| (reference
-    adamw_logger, src/utils/logging.py:108-118)."""
-    vals = [optimizer.state[p][key].abs().mean() for p in module.parameters()
-            if p in optimizer.state]
-    return torch.stack(vals).mean()
+def _abs_means(optimizer: torch.optim.Optimizer, module: torch.nn.Module):
+    """The mean over the module's params of mean |moment|, for AdamW's two
+    moments (reference adamw_logger, src/utils/logging.py:108-118)."""
+    params = [p for p in module.parameters() if p in optimizer.state]
+    means = fsdp.leaf_abs_means([optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq")
+                                 for p in params])
+    return [m.mean() for m in means.split(len(params))]
 
 
 def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video, audio,
@@ -181,7 +189,7 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     """One step in place on ``state``; returns its metrics as Python numbers.
 
     ``full_metrics=False`` skips the diagnostics read only at log boundaries
-    (per-parameter grad norms, optimizer moments, input variance); ``draws``
+    (``grad_stats``, optimizer moments, input variance); ``draws``
     goes to ``loss_fn``."""
     step = state.step
     lr, wd = lr_at_step(sched, step), wd_at_step(sched, step)
@@ -191,14 +199,15 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     loss.backward()
     dist.all_reduce_grads([state.encoder, state.predictor])
 
-    # per-model global norms; the clip only after warmup (reference:
-    # train.py:518-520)
+    # per-model global norms from the per-parameter ones; the clip only
+    # after warmup (reference: train.py:518-520)
     enc_g, pred_g = _grads(state.encoder), _grads(state.predictor)
-    enc_norm = global_norm([g for _, g in enc_g])
-    pred_norm = global_norm([g for _, g in pred_g])
+    enc_n, pred_n = fsdp.leaf_norms([g for _, g in enc_g + pred_g]).split(
+        [len(enc_g), len(pred_g)])
+    enc_norm, pred_norm = torch.linalg.vector_norm(enc_n), torch.linalg.vector_norm(pred_n)
     if cfg.clip_grad is not None and step // cfg.ipe > cfg.warmup_epochs:
-        clip_([g for _, g in enc_g], enc_norm, cfg.clip_grad)
-        clip_([g for _, g in pred_g], pred_norm, cfg.clip_grad)
+        enc_n = enc_n * clip_([g for _, g in enc_g], enc_norm, cfg.clip_grad)
+        pred_n = pred_n * clip_([g for _, g in pred_g], pred_norm, cfg.clip_grad)
 
     set_lr_wd(state.optimizer, lr, wd)
     state.optimizer.step()
@@ -209,15 +218,17 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     scalars = {"loss": loss, "loss_jepa": loss_jepa, "loss_reg": loss_reg,
                "enc_grad_norm": enc_norm, "pred_grad_norm": pred_norm}
     if full_metrics:
-        enc_avg, enc_first, enc_last = grad_stats(enc_g)
+        # the clipped gradients' statistics, as the JAX step logs them
+        enc_avg, enc_first, enc_last = grad_stats(enc_g, enc_n)
+        mu, nu = _abs_means(state.optimizer, state.encoder)
         var = video.float().flatten(1).var(1, unbiased=False)
         scalars.update({
             "enc_grad_avg": enc_avg,
             "enc_grad_first_qkv": enc_first,
             "enc_grad_last_qkv": enc_last,
-            "pred_grad_avg": grad_stats(pred_g)[0],
-            "opt_mu_abs": _abs_mean(state.optimizer, state.encoder, "exp_avg"),
-            "opt_nu_abs": _abs_mean(state.optimizer, state.encoder, "exp_avg_sq"),
+            "pred_grad_avg": grad_stats(pred_g, pred_n)[0],
+            "opt_mu_abs": mu,
+            "opt_nu_abs": nu,
             "input_var": var.mean(),
             "input_var_min": var.min(),
         })

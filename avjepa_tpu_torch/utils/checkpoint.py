@@ -12,9 +12,12 @@ and adds no mapping code:
 - ``save_train_state`` / ``load_train_state``: the pretrain app's state as the
   reference writes it (app/avjepa/train.py:332-350): ``encoder``,
   ``predictor``, ``target_encoder``, ``opt``, ``epoch``, ``loss``,
-  ``batch_size``, ``world_size``, ``lr``, plus ``step``;
+  ``batch_size``, ``world_size``, ``lr``, plus ``step``; whole tensors on
+  the host whether the models are sharded (the fsdp axis) or not, so a file
+  crosses between fsdp, data and one process;
 - ``load_jepa_weights``: the frozen ``target_encoder`` and ``predictor`` of
-  such a file, for the avprediction app and the av_prediction eval;
+  such a file, for the avprediction app and the av_prediction eval, into
+  sharded modules or not;
 - ``save_probe_state`` / ``load_probe_state``: the reconstruction probe, its
   AdamW state and its step, at ``<folder>/<tag>-probe-latest.pth.tar``
   (the JAX package keeps an Orbax ``<tag>-probe-ckpt`` directory);
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from avjepa_tpu_torch.parallel import dist, fsdp
 from avjepa_tpu_torch.utils.logging import get_logger
 from avjepa_tpu_torch.utils.torch_import import (
     classifier_params_to_state_dict,
@@ -96,12 +100,13 @@ def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
                      lr: float, world_size: int = 1) -> None:
     """Write ``state`` (a ``train.state.TrainState``) to ``path``, atomically.
     ``batch_size`` is per rank and ``world_size`` the number of ranks, as the
-    reference writes them."""
+    reference writes them. Every rank must call it (the sharded tensors are
+    gathered); rank 0 alone copies the state to its host and writes."""
     out = {
-        "encoder": state.encoder.state_dict(),
-        "predictor": state.predictor.state_dict(),
-        "target_encoder": state.target_encoder.state_dict(),
-        "opt": state.optimizer.state_dict(),
+        "encoder": fsdp.full_state_dict(state.encoder),
+        "predictor": fsdp.full_state_dict(state.predictor),
+        "target_encoder": fsdp.full_state_dict(state.target_encoder),
+        "opt": fsdp.full_optimizer_state_dict(state.optimizer),
         "scaler": None,
         "epoch": epoch,
         "loss": loss,
@@ -110,7 +115,8 @@ def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
         "lr": lr,
         "step": state.step,
     }
-    _save(out, path)
+    if dist.is_main():
+        _save(out, path)
 
 
 def _save(out: dict, path: str) -> None:
@@ -122,13 +128,14 @@ def _save(out: dict, path: str) -> None:
 
 def load_train_state(path: str, state) -> None:
     """Restore ``state`` in place from a ``.pth.tar`` written by
-    ``save_train_state`` (a reference file without ``step`` starts at 0)."""
+    ``save_train_state`` (a reference file without ``step`` starts at 0);
+    every rank reads the whole file and keeps its shards."""
     ckpt = _load(path)
     for key, module in (("encoder", state.encoder), ("predictor", state.predictor),
                         ("target_encoder", state.target_encoder)):
-        module.load_state_dict(_module_state(ckpt, key, path), strict=True)
+        fsdp.load_full_state_dict(module, _module_state(ckpt, key, path))
     if ckpt.get("opt") is not None:
-        state.optimizer.load_state_dict(ckpt["opt"])
+        fsdp.load_full_optimizer_state_dict(state.optimizer, ckpt["opt"])
     state.step = int(ckpt.get("step", 0))
 
 
@@ -137,8 +144,8 @@ def load_jepa_weights(path: str, target_encoder: nn.Module, predictor: nn.Module
     reference-layout ``.pth.tar`` (the pretrain app's output) strictly; a
     directory (an Orbax checkpoint) raises, naming the converter."""
     ckpt = _load(path)
-    target_encoder.load_state_dict(_module_state(ckpt, "target_encoder", path), strict=True)
-    predictor.load_state_dict(_module_state(ckpt, "predictor", path), strict=True)
+    fsdp.load_full_state_dict(target_encoder, _module_state(ckpt, "target_encoder", path))
+    fsdp.load_full_state_dict(predictor, _module_state(ckpt, "predictor", path))
 
 
 def save_probe_state(path: str, state) -> None:

@@ -65,8 +65,20 @@ exits non-zero:
      step, both entries' step ms; (b) two ranks on the one card over gloo
      (NCCL takes one rank a device) at batch 12 each against one process
      at batch 24 on the same global batch and masks: two steps' loss and
-     grad norms, the ranks' weights the same to the bit, the ms a step.
-Every run of phases 4-5, 9, 11 and 12 is driven with the kernels' launch
+     grad norms, the ranks' weights the same to the bit, the ms a step;
+ 13. ViT-H: (a) vith16.yaml as it stands (ViT-H/16 video, 32 x 1280, 16 heads
+     of 80; predictor 12 x 384; 1568 tokens; bf16; batch 24; remat;
+     synthetic clips) in this process: the step on a resident batch (CUDA
+     events, three rounds), peak memory, K1/K2 launches, a profiled step,
+     and K1/K2 held against their plain versions and timed at the step's
+     shapes beside SDPA and their bounds; (b)
+     two gloo ranks on the one card at batch 12 each, under tpu.mesh_fsdp:
+     2 (the models sharded by FSDP2) and under tpu.mesh_data: 2, on (a)'s
+     batch: losses and grad norms against each other and (a), each rank's
+     slice of the weights to the bit, each rank's peak memory.
+     ``tools/torch_fsdp_cards.py`` runs the same config over NCCL on four
+     cards (not part of this script's run).
+Every run of phases 4-5, 9, 11, 12 and 13 is driven with the kernels' launch
 counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
@@ -517,6 +529,100 @@ def _exp_floor_ms(n_exp: float) -> float:
     return n_exp / (sms * MUFU_PER_CLOCK * mhz * 1e6) * 1e3
 
 
+def _sdpa_inputs(q, k, v, mask):
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    m4 = None if mask is None else mask[:, None, None, :]
+    return q, k, v, m4
+
+
+def _sdpa_fwd_ms(q, k, v, mask):
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, m4 = _sdpa_inputs(q, k, v, mask)
+    with torch.no_grad():
+        return _time_rounds(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4), 10)
+
+
+def _sdpa_bwd_ms(q, k, v, mask):
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, m4 = _sdpa_inputs(q, k, v, mask)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=m4)
+    g = torch.randn_like(o)
+    return _time_rounds(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 10)
+
+
+def _hold_packed(label: str, forward: bool, got, want) -> float:
+    """K1's (out, lse) or K2's dqkv against its plain version's on the same
+    inputs, at the check phases' bf16 tolerances (TOL, BWD_REL_TOL); raises
+    on a mismatch. Returns the max abs error (out's, or dqkv's)."""
+    if forward:
+        tol_out, tol_lse = TOL["bfloat16"]
+        err, lse_err = _max_err(got[0], want[0]), _max_err(got[1], want[1])
+        ok = err <= tol_out and lse_err <= tol_lse
+        note = (f"max|out err| {err:.3e} (tol {tol_out:g}), max|lse err| {lse_err:.3e} "
+                f"(tol {tol_lse:g})")
+    else:
+        tol = BWD_REL_TOL["bfloat16"]
+        err = _max_err(got, want)
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        ok = rel <= tol
+        note = f"max|err|/max|plain| {rel:.2e} (tol {tol:g})"
+    print(f"  {label} bf16 against its plain version: {note} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def _time_packed(forward: bool, b: int, n: int, h: int, d: int, mask, gen,
+                 label: str) -> tuple:
+    """K1 (``forward``) or K2 in bf16 on random qkv [b, n, 3 h d] with key
+    mask ``mask`` ([b, n] bool or None), held against its plain version on
+    these inputs first (``_hold_packed``, which raises): ((ms, plain_ms,
+    library_ms, bound_ms, bound_by), (kernel's, SDPA's (min, median, max)
+    rounds), exponential floor ms or None). Work counts only valid keys
+    (masked key tiles are skipped); the backward's exponential floor counts
+    two passes, one exponential per valid score each."""
+    import torch
+
+    from avjepa_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    valid = b * n if mask is None else int(mask.sum().item())
+    out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
+    q, k, v = fa._split_qkv(qkv, h)
+    if forward:
+        run = (lambda: fa.flash_attention_qkv_fwd(qkv, h, mask),
+               lambda: fa.flash_attention_qkv_ref(qkv, h, mask))
+        lib = _sdpa_fwd_ms(q, k, v, mask)
+        # qkv read, out written; lse f32
+        bound = _bound(4 * h * d * n * valid, 4 * b * n * h * d * 2 + b * h * n * 4)
+        floor = None
+    else:
+        dout = torch.randn((b, n, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        run = (lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask),
+               lambda: fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask))
+        lib = _sdpa_bwd_ms(q, k, v, mask)
+        # reads qkv, out, dO, lse, bias; writes dqkv
+        bound = _bound(10 * h * d * n * valid, (8 * b * n * h * d) * 2 + b * h * n * 4 + b * n * 4)
+        floor = _exp_floor_ms(2 * h * n * valid)
+    _hold_packed(label, forward, run[0](), run[1]())
+    rounds = (_time_rounds(run[0], 20), lib)
+    return (rounds[0][1], _time_ms(run[1], 3), lib[1], *bound), rounds, floor
+
+
+def _print_time(key: str, times: tuple, rounds: tuple, floor) -> None:
+    ms, plain, lib, bound, by = times
+    (k_min, _, k_max), (l_min, _, l_max) = rounds
+    floor = f", exponential floor {floor:.3f} ms" if floor is not None else ""
+    print(f"time {key} bf16: kernel {ms:.3f} ms (median of {TIME_ROUNDS} rounds; "
+          f"{k_min:.3f}-{k_max:.3f}), plain {plain:.3f} ms, library (SDPA) {lib:.3f} ms "
+          f"({l_min:.3f}-{l_max:.3f}), bound {bound:.3f} ms ({by}){floor}, "
+          f"{100 * bound / ms:.1f}% of the bound, kernel/SDPA {ms / lib:.2f}")
+
+
 def time_kernels() -> dict:
     """bf16 kernel, plain and library (SDPA) times at each kernel's main
     shape, with its bound: {key: (ms, plain_ms, library_ms, bound_ms,
@@ -527,7 +633,6 @@ def time_kernels() -> dict:
     encoder's d=64 shape; beside the backward kernels' bounds, the floor of
     their exponentials (two passes, one per valid score each)."""
     import torch
-    import torch.nn.functional as F
 
     from avjepa_tpu_torch.ops import flash_attention as fa
 
@@ -537,22 +642,6 @@ def time_kernels() -> dict:
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf)
 
-    def sdpa_inputs(q, k, v, mask):
-        q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-        m4 = None if mask is None else mask[:, None, None, :]
-        return q, k, v, m4
-
-    def sdpa_bwd_ms(q, k, v, mask):
-        q, k, v, m4 = sdpa_inputs(q, k, v, mask)
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=m4)
-        g = torch.randn_like(o)
-        return _time_rounds(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 10)
-
-    def sdpa_fwd_ms(q, k, v, mask):
-        q, k, v, m4 = sdpa_inputs(q, k, v, mask)
-        with torch.no_grad():
-            return _time_rounds(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4), 10)
-
     times, rounds, floors = {}, {}, {}
     # K1: the target encoder's unmasked layer; K2: a predictor layer (random
     # keys, and the step's prefix masks) and a context layer
@@ -560,54 +649,31 @@ def time_kernels() -> dict:
                                   ("bwd_packed", 48, 1408, 16, 24, "random"),
                                   ("bwd_packed prefix", 48, 1408, 16, 24, "prefix"),
                                   ("bwd_packed context", 24, 512, 16, 64, "tail")):
-        qkv, dout = randn((b, n, 3 * h * d)), randn((b, n, h * d))
-        mask = _key_mask(gen, b, n, kind)
-        valid = b * n if mask is None else int(mask.sum().item())
-        out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
-        q, k, v = fa._split_qkv(qkv, h)
-        io = 4 * b * n * h * d * 2 + b * h * n * 4  # qkv read, out written; lse f32
-        if key == "fwd_packed":
-            run = (lambda: fa.flash_attention_qkv_fwd(qkv, h, mask),
-                   lambda: fa.flash_attention_qkv_ref(qkv, h, mask))
-            lib = sdpa_fwd_ms(q, k, v, mask)
-            bound = _bound(4 * h * d * n * valid, io)
-        else:
-            run = (lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask),
-                   lambda: fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask))
-            lib = sdpa_bwd_ms(q, k, v, mask)
-            # reads qkv, out, dO, lse, bias; writes dqkv
-            bound = _bound(10 * h * d * n * valid,
-                           (8 * b * n * h * d) * 2 + b * h * n * 4 + b * n * 4)
-            floors[key] = _exp_floor_ms(2 * h * n * valid)
-        rounds[key] = (_time_rounds(run[0], 20), lib)
-        times[key] = (rounds[key][0][1], _time_ms(run[1], 3), lib[1], *bound)
-        del qkv, dout, out, lse, q, k, v
+        times[key], rounds[key], floors[key] = _time_packed(
+            key == "fwd_packed", b, n, h, d, _key_mask(gen, b, n, kind), gen,
+            f"time {key} B={b} N={n} H={h} d={d}")
     # K3: the vit_tiny target encoder; K4: a vit_tiny context layer
     for key, b, h, n, d in (("fwd", 24, 3, 1664, 64), ("bwd", 24, 3, 512, 64)):
         q, k, v, dout = (randn((b, h, n, d)) for _ in range(4))
         mask = None if key == "fwd" else _key_mask(gen, b, n, "tail")
         valid = b * n if mask is None else int(mask.sum().item())
         out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        floors[key] = None
         if key == "fwd":
             run = (lambda: fa.flash_attention_fwd(q, k, v, mask),
                    lambda: fa.flash_attention_ref(q, k, v, mask))
-            lib = sdpa_fwd_ms(q, k, v, mask)
+            lib = _sdpa_fwd_ms(q, k, v, mask)
             bound = _bound(4 * h * d * n * valid, 4 * b * h * n * d * 2 + b * h * n * 4)
         else:
             run = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask),
                    lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask))
-            lib = sdpa_bwd_ms(q, k, v, mask)
+            lib = _sdpa_bwd_ms(q, k, v, mask)
             bound = _bound(10 * h * d * n * valid, 8 * b * h * n * d * 2 + b * h * n * 4)
             floors[key] = _exp_floor_ms(2 * h * n * valid)
         rounds[key] = (_time_rounds(run[0], 20), lib)
         times[key] = (rounds[key][0][1], _time_ms(run[1], 3), lib[1], *bound)
-    for key, (ms, plain, lib, bound, by) in times.items():
-        (k_min, _, k_max), (l_min, _, l_max) = rounds[key]
-        floor = f", exponential floor {floors[key]:.3f} ms" if key in floors else ""
-        print(f"time {key} bf16: kernel {ms:.3f} ms (median of {TIME_ROUNDS} rounds; "
-              f"{k_min:.3f}-{k_max:.3f}), plain {plain:.3f} ms, library (SDPA) {lib:.3f} ms "
-              f"({l_min:.3f}-{l_max:.3f}), bound {bound:.3f} ms ({by}){floor}, "
-              f"{100 * bound / ms:.1f}% of the bound, kernel/SDPA {ms / lib:.2f}")
+    for key in times:
+        _print_time(key, times[key], rounds[key], floors[key])
     return times
 
 
@@ -1627,10 +1693,15 @@ def _dp_cfg(workdir: str, batch: int) -> dict:
     return _pretrain_cfg("av-vitl16.yaml", workdir, data={"batch_size": batch, "num_workers": 2})
 
 
-def _digest(modules) -> str:
+def _digest(modules, gather: bool = True, part=None) -> str:
     """A fingerprint of the modules' f32 weights, computed on the device:
     for each tensor the sum of its bit patterns as integers, plain and
-    weighted by position (wrapping in int64), so that any changed bit shows."""
+    weighted by position (wrapping in int64), so that any changed bit shows.
+    Sharded (DTensor) entries are gathered whole, or left out without
+    ``gather``. With ``part`` = (index, parts), each tensor's chunk
+    ``index`` of ``parts`` along dimension 0 instead, as ``torch.chunk``
+    cuts it (FSDP2's cut): a DTensor's local shard, with no collective, and
+    the same slice of a whole tensor."""
     import hashlib
 
     import torch
@@ -1638,10 +1709,20 @@ def _digest(modules) -> str:
     sums = []
     for m in modules:
         for v in m.state_dict().values():
+            if part is not None:
+                if hasattr(v, "to_local"):
+                    v = v.to_local()
+                else:
+                    chunks = torch.chunk(v, part[1]) if v.dim() else [v] * part[1]
+                    v = chunks[part[0]] if part[0] < len(chunks) else v[:0]
+            elif hasattr(v, "full_tensor"):
+                if not gather:
+                    continue
+                v = v.full_tensor()
             bits = v.detach().reshape(-1).view(torch.int32).long()
             pos = torch.arange(1, bits.numel() + 1, device=bits.device)
             sums += [bits.sum(), (bits * pos).sum()]
-    return hashlib.sha256(str(torch.stack(sums).tolist()).encode()).hexdigest()
+    return hashlib.sha256(str(torch.stack(sums).tolist() if sums else []).encode()).hexdigest()
 
 
 def _dp_steps(h, inputs: dict, steps: int = 2) -> list:
@@ -1797,6 +1878,317 @@ def run_distributed_world2(workdir: str) -> dict:
     return {"step_ms": ms, "ref_ms": ref[1]["ms"]}
 
 
+# phase 13: ViT-H (vith16.yaml). (b) holds the two-rank fsdp step against
+# the two-rank data-axis step on the same global batch: the weights are
+# equal to the bit (the reduce-scatter sums the same two f32 halves of each
+# gradient as the all-reduce, and the optimizer and the EMA work element by
+# element), and so are the losses; a grad norm sums each parameter's two
+# shards' squares where the data axis takes the whole tensor's norm. The
+# first fsdp step is held against (a)'s unsharded step at batch 24, whose
+# sums split the batch otherwise, in bf16 through 44 layers
+FSDP_DATA_NORM_REL_TOL = 1e-6
+FSDP_LOSS_REL_TOL = 1e-3
+FSDP_NORM_REL_TOL = 1e-2
+
+
+def _vith_cfg(workdir: str, batch: int = 24, **over) -> dict:
+    return _pretrain_cfg("vith16.yaml", workdir, data={"batch_size": batch, "num_workers": 2},
+                         **over)
+
+
+def _step_record(h, inputs: dict, gather: bool, part=None) -> dict:
+    """One train step on ``inputs``: its loss, grad norms, ms (host clock to
+    a sync) and the digest of the three models' weights (``_digest``), and
+    with ``part`` that of this rank's slice of them."""
+    import torch
+
+    from avjepa_tpu_torch.train.step import train_step
+
+    models = [h.state.encoder, h.state.predictor, h.state.target_encoder]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = train_step(h.state, h.sched, h.step_cfg, **inputs)
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"],
+            "enc_grad_norm": m["enc_grad_norm"], "pred_grad_norm": m["pred_grad_norm"],
+            "digest": _digest(models, gather),
+            "slice_digest": None if part is None else _digest(models, part=part)}
+
+
+def _vith_inputs(h, workdir: str, rank: int = 0, world: int = 1) -> dict:
+    """This rank's rows of the ViT-H batch that phase 13 (a) saved."""
+    import numpy as np
+
+    from avjepa_tpu_torch.masks.multiblock3d import MaskSet
+
+    z = np.load(os.path.join(workdir, "vith-batch.npz"))
+    b = z["video"].shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    masks = [MaskSet(enc=z[f"enc{i}"][rows], pred=z[f"pred{i}"][rows],
+                     enc_idx=z[f"idx{i}"][rows], union_idx=z[f"union{i}"][rows])
+             for i in range(len(h.cfg.mask))]
+    return h.to_device(z["video"][rows], None, masks)
+
+
+def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: int,
+              device: str = "cuda", backend: str = "nccl", profile: bool = False) -> None:
+    """One rank of a ViT-H run in a process of its own: vith16.yaml at batch
+    24 / world a rank on a ``data`` x ``fsdp_`` mesh (``tpu.mesh_data`` /
+    ``mesh_fsdp`` through ``pretrain.setup``; fsdp_ > 1 shards the blocks);
+    ``device`` "cuda" takes cuda:LOCAL_RANK, and two ranks on one card take
+    "cuda:0" over gloo (NCCL takes one rank a device). Two steps on this
+    rank's rows of phase 13 (a)'s batch, then, with ``profile``, one
+    step under torch.profiler; the result, with this process's peak memory,
+    to fsdp-<data>x<fsdp_>-rank<rank>.json. Over gloo the whole-weight
+    digest leaves the sharded entries out: gathering them
+    (``DTensor.full_tensor``, a functional collective) dies with SIGSEGV
+    over gloo on CUDA tensors in torch 2.11, while FSDP2's own collectives
+    run; so each rank also digests its slice (``_digest``'s ``part``: rank
+    of world), which a sharded rank holds and a data rank cuts from its
+    whole tensors."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.parallel import dist, fsdp
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    device = dist.init_distributed(device, backend=backend, timeout_s=600)
+    try:
+        cfg = load_config(_vith_cfg(workdir, 24 // world,
+                                    tpu={"mesh_data": data, "mesh_fsdp": fsdp_}))
+        h = pretrain.setup(cfg, device)
+        h.loader.close()
+        params = list(h.state.encoder.parameters())
+        inputs = _vith_inputs(h, workdir, rank, world)
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        records = [_step_record(h, inputs, backend == "nccl", (rank, world))
+                   for _ in range(2)]
+        result = {"backend": torch.distributed.get_backend(), "world": dist.world(),
+                  "mesh": [data, fsdp_], "steps": records, "launches": dict(fa.LAUNCHES),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "encoder_sharded_params": sum(p.numel() for p in params
+                                                if fsdp.is_sharded(p)),
+                  "encoder_local_params": sum(fsdp.local(p).numel() for p in params),
+                  "pred_counts": inputs["pred_masks"].flatten(1).sum(1).tolist()}
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            result["profile_device_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+            result["profile_nccl_ms"] = sum(e.self_device_time_total for e in events
+                                            if "nccl" in e.key.lower()) / 1e3
+            if rank == 0:
+                os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+                with open(os.path.join(ROOT, "chiprun_out",
+                                       f"fsdp_{data}x{fsdp_}_profile.txt"), "w") as f:
+                    f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                                      row_limit=40))
+        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}-rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.shutdown()
+
+
+def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: str = "cuda",
+                      backend: str = "nccl", profile: bool = False) -> list:
+    """``world`` fsdp_rank processes; their results, rank by rank."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.fsdp_rank({r}, {world}, {port}, "
+                               f"{workdir!r}, {data}, {fsdp_}, {device!r}, {backend!r}, "
+                               f"profile={profile})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        # the ranks share the host's cores, as main_distributed's do
+        env=dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world))))
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"fsdp_{data}x{fsdp_}.log"), "w") as f:
+        f.write("\n".join(outs))
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"a {data}x{fsdp_} rank failed:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}-rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def run_vith(workdir: str) -> dict:
+    """Phase 13 (a): vith16.yaml as it stands (ViT-H/16 video: 32 x 1280, 16
+    heads of 80; predictor 12 x 384, 16 heads of 24; 1568 tokens; bf16;
+    batch 24; remat; synthetic clips) in this process, unsharded: the first
+    step's loss and grad norms, the step ms on a resident batch (CUDA
+    events, three rounds), peak memory, the K1/K2 launches of a step, one
+    profiled step, and K1/K2 held against their plain versions and timed at
+    this step's shapes (the target encoder, each context pass's K bucket
+    with its key mask, the merged predictor's Ku bucket). Saves the batch
+    for (b)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+
+    t_phase = time.perf_counter()
+    cfg = load_config(_vith_cfg(workdir))
+    h = pretrain.setup(cfg, torch.device("cuda", 0))
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    arrays = {"video": video}
+    for i, m in enumerate(masks):
+        arrays.update({f"enc{i}": m.enc, f"pred{i}": m.pred, f"idx{i}": m.enc_idx,
+                       f"union{i}": m.union_idx})
+    np.savez(os.path.join(workdir, "vith-batch.npz"), **arrays)
+    inputs = h.to_device(video, audio, masks)
+    setup_s = time.perf_counter() - t_phase
+    n_enc = sum(p.numel() for p in h.state.encoder.parameters())
+    n_pred = sum(p.numel() for p in h.state.predictor.parameters())
+
+    fa.reset_launches()
+    first = _step_record(h, inputs, gather=False)
+    launches = dict(fa.LAUNCHES)
+    print(f"vith16: ViT-H encoder {n_enc:,} parameters, predictor {n_pred:,}; set-up "
+          f"{setup_s:.1f} s; first step loss {first['loss']:.6f}, enc grad norm "
+          f"{first['enc_grad_norm']:.4e}, pred grad norm {first['pred_grad_norm']:.4e}; "
+          f"launches a step {launches}")
+    if not (launches["fwd_packed"] and launches["bwd_packed"]) or not math.isfinite(
+            first["loss"]):
+        raise AssertionError(f"the ViT-H step did not run through K1/K2: {launches}, {first}")
+
+    def run():
+        train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    all_ms = [_time_ms(run, 3) for _ in range(3)]
+    ms = statistics.median(all_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vith16: ViT-H step {ms:.1f} ms on a resident batch of 24 (CUDA events, 3 steps "
+          f"a round; rounds {', '.join(f'{x:.1f}' for x in all_ms)}), {24000 / ms:.2f} "
+          f"clips/s; peak allocated {peak:.2f} GiB; {card_line()}")
+    _profile(run, "vith16: ViT-H step", "vith_profile.txt", steps=1)
+
+    # K1/K2 at this step's shapes, with this batch's key masks
+    n = h.cfg.layout().num_tokens
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    enc_m, pred_m, union = inputs["enc_masks"], inputs["pred_masks"], inputs["union_idx"]
+    cfgs = enc_m.shape[0]
+    u_all = union.transpose(0, 1).reshape(-1, union.shape[-1]).long()
+    either = (enc_m | pred_m).transpose(0, 1).reshape(-1, n)
+    pred_key = torch.gather(either, 1, u_all.clamp(max=n - 1)) & (u_all < n)
+    shapes = [("fwd_packed target", True, 24, n, 16, 80, None)]
+    for i, idx in enumerate(inputs["enc_idx"]):
+        shapes += [(f"{key} context {i}", fwd, 24, idx.shape[1], 16, 80, idx < n)
+                   for key, fwd in (("fwd_packed", True), ("bwd_packed", False))]
+    shapes += [(f"{key} predictor", fwd, 24 * cfgs, u_all.shape[1], 16, 24, pred_key)
+               for key, fwd in (("fwd_packed", True), ("bwd_packed", False))]
+    times = {}
+    for key, fwd, b, nk, heads, d, mask in shapes:
+        label = f"{key} B={b} N={nk} H={heads} d={d}"
+        times[key], rounds, floor = _time_packed(fwd, b, nk, heads, d, mask, gen,
+                                                 f"vith16 {label}")
+        _print_time(label, times[key], rounds, floor)
+    del run, h, inputs
+    torch.cuda.empty_cache()  # (b) runs in a process of its own on this card
+    print(f"vith16: phase 13 (a) took {time.perf_counter() - t_phase:.1f} s")
+    return {"first": first, "step_ms": ms, "peak_gib": peak, "launches": launches,
+            "times": times}
+
+
+def run_vith_fsdp(workdir: str, vith: dict) -> dict:
+    """Phase 13 (b): two ranks on the one card over gloo, ViT-H at batch 12
+    a rank on (a)'s global batch and initial weights, two steps each, under
+    ``tpu.mesh_fsdp: 2`` (the models sharded over the two ranks) and under
+    ``tpu.mesh_data: 2``. After each step each fsdp rank's shards equal to
+    the bit the same slice of the data rank's weights, and the data ranks'
+    whole weights equal each other; the fsdp step's loss equals the data
+    step's and its grad norms are within FSDP_DATA_NORM_REL_TOL; the first
+    fsdp step is within FSDP_LOSS_REL_TOL and FSDP_NORM_REL_TOL of (a)'s
+    unsharded first step; K1/K2 launched; each rank's peak memory in both
+    runs."""
+    t_phase = time.perf_counter()
+    runs = {"fsdp": _spawn_fsdp_ranks(workdir, 2, 1, 2, "cuda:0", "gloo"),
+            "data": _spawn_fsdp_ranks(workdir, 2, 2, 1, "cuda:0", "gloo")}
+    for name, ranks in runs.items():
+        r0, r1 = ranks
+        print(f"vith16 {name} 2: transport {r0['backend']} over CUDA tensors, two ranks on one "
+              f"card, world {r0['world']}, mesh (data, fsdp) {r0['mesh']}; encoder parameters "
+              f"sharded {r0['encoder_sharded_params']:,}, held a rank "
+              f"{r0['encoder_local_params']:,}; peak allocated rank 0 {r0['peak_gib']:.2f} GiB, "
+              f"rank 1 {r1['peak_gib']:.2f} GiB; steps {[round(x['ms'], 1) for x in r0['steps']]}"
+              f" ms (host clock to a sync); launches a rank {r0['launches']}")
+        if r0["backend"] != "gloo" or r0["world"] != 2:
+            raise AssertionError(f"{name}: not two gloo ranks: {r0}")
+        if not all(r["launches"]["fwd_packed"] and r["launches"]["bwd_packed"] for r in ranks):
+            raise AssertionError(f"{name}: K1/K2 not launched: {r0['launches']}")
+        for a, b in zip(r0["steps"], r1["steps"]):
+            if a["loss"] != b["loss"] or (name == "data" and a["digest"] != b["digest"]):
+                raise AssertionError(f"{name}: the ranks' weights or losses differ")
+    for rank, (f, d) in enumerate(zip(runs["fsdp"], runs["data"])):
+        same = [a["slice_digest"] == b["slice_digest"] for a, b in zip(f["steps"], d["steps"])]
+        print(f"vith16 fsdp 2 vs data 2, rank {rank}: its slice of the three models' weights "
+              f"equal to the bit after steps 1, 2: {same}")
+        if not all(same):
+            raise AssertionError(f"rank {rank}: the sharded weights differ from the data axis's")
+    if runs["fsdp"][0]["encoder_local_params"] * 2 < runs["fsdp"][0]["encoder_sharded_params"]:
+        raise AssertionError("fsdp 2: a rank holds less than half the sharded parameters")
+    if not runs["fsdp"][0]["encoder_sharded_params"] or runs["data"][0]["encoder_sharded_params"]:
+        raise AssertionError("fsdp 2 did not shard, or data 2 did")
+    want1 = vith["first"]
+    for i, (got, want) in enumerate(zip(runs["fsdp"][0]["steps"], runs["data"][0]["steps"])):
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+        print(f"vith16 fsdp 2 vs data 2, step {i + 1}: loss {got['loss']:.6f} vs "
+              f"{want['loss']:.6f}, enc grad norm {got['enc_grad_norm']:.4e} vs "
+              f"{want['enc_grad_norm']:.4e}, pred {got['pred_grad_norm']:.4e} vs "
+              f"{want['pred_grad_norm']:.4e}: rel {', '.join(f'{v:.2e}' for v in rel.values())}"
+              f" (loss equal, norms tol {FSDP_DATA_NORM_REL_TOL:g})")
+        if got["loss"] != want["loss"] or max(rel["enc_grad_norm"],
+                                              rel["pred_grad_norm"]) > FSDP_DATA_NORM_REL_TOL:
+            raise AssertionError("the fsdp ViT-H step disagrees with the data axis's")
+        if i == 0:
+            rel1 = {k: abs(got[k] - want1[k]) / abs(want1[k])
+                    for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+            print(f"vith16 fsdp 2 step 1 vs the unsharded step at batch 24: rel "
+                  f"{', '.join(f'{v:.2e}' for v in rel1.values())} (tol "
+                  f"{FSDP_LOSS_REL_TOL:g}, {FSDP_NORM_REL_TOL:g})")
+            if rel1["loss"] > FSDP_LOSS_REL_TOL or max(
+                    rel1["enc_grad_norm"], rel1["pred_grad_norm"]) > FSDP_NORM_REL_TOL:
+                raise AssertionError("the fsdp ViT-H step disagrees with the unsharded step")
+    saving = runs["data"][0]["peak_gib"] - runs["fsdp"][0]["peak_gib"]
+    print(f"vith16 fsdp: a rank's peak {runs['fsdp'][0]['peak_gib']:.2f} GiB sharded against "
+          f"{runs['data'][0]['peak_gib']:.2f} GiB on the data axis ({saving:.2f} GiB saved); "
+          f"(a) at batch 24 in one process {vith['peak_gib']:.2f} GiB; phase 13 (b) took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return runs
+
+
 def main() -> None:
     try:
         import torch
@@ -1828,6 +2220,9 @@ def main() -> None:
         run_distributed_world1(workdir)
         run_distributed_world2(workdir)
         print(f"dp: phase 12 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_vith_fsdp(workdir, run_vith(workdir))
+        print(f"vith16: phase 13 took {time.perf_counter() - t0:.1f} s")
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)

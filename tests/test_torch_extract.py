@@ -135,7 +135,7 @@ def test_package_imports_no_jax():
         "'models.prediction_probes', 'train.avprediction', 'evals', 'evals.av_prediction', "
         "'app.eval_main', 'models.attentive_pooler', 'evals.video_classification', "
         "'evals.image_classification', 'data.randaugment', 'parallel', 'parallel.dist', "
-        "'app.main_distributed', 'utils.monitoring')}\n"
+        "'parallel.fsdp', 'app.main_distributed', 'utils.monitoring')}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert len(mods) >= 36 and not bad(), (len(mods), bad())\n"
         "import chip_smoke\n"

@@ -11,7 +11,11 @@ rank's and to ``make_train_step``'s on the concatenated batch, also when the
 ranks' target-token counts differ; one gradient all-reduce a step; the same
 weights on every rank; the image eval and the avprediction apps at two
 ranks; the helpers without a process group; and the launcher
-(``app/main_distributed.py``). Small sizes, f32. Every process has
+(``app/main_distributed.py``). The fsdp axis (``parallel/fsdp.py``) is held
+the same way: the step under ``mesh_fsdp: 2`` and on a 2 x 2 (data, fsdp)
+mesh of four ranks against one process, the data axis and JAX; the
+avjepa, vjepa and avprediction apps under ``mesh_fsdp: 2``; checkpoints
+crossing between fsdp 2, data 2 and one process. Small sizes, f32. Every process has
 a 60 s rendezvous and collective limit and every spawn (a group of worker
 modes) a 120 s join, after which it is killed and the test fails; each
 spawn takes a fresh port.
@@ -155,9 +159,13 @@ def _one_thread():
 
 
 # the worker modes spawned together, each group well inside the join limit
-# on a loaded CPU; avprediction reads pretrain's checkpoint
-GROUPS = (("step", "info"), ("pretrain",), ("preempt",), ("avprediction",), ("eval", "extract"))
-NEEDS = {"avprediction": "pretrain"}
+# on a loaded CPU; avprediction and the fsdp apps read pretrain's
+# checkpoints; hsdp_step runs on four ranks, the others on two
+GROUPS = (("step", "info"), ("pretrain",), ("preempt",), ("avprediction",), ("eval", "extract"),
+          ("fsdp_step",), ("fsdp_pretrain", "fsdp_vjepa"), ("fsdp_avprediction",),
+          ("hsdp_step",))
+NEEDS = {"avprediction": "pretrain", "fsdp_pretrain": "pretrain", "fsdp_avprediction": "pretrain"}
+WORLD = {"hsdp_step": 4}
 
 
 class _Results(dict):
@@ -169,12 +177,14 @@ class _Results(dict):
         self.outdir = outdir
 
     def __missing__(self, key):
-        if key[0] in NEEDS and (NEEDS[key[0]], 0) not in self:
-            self.__missing__((NEEDS[key[0]], 0))
         modes = next(g for g in GROUPS if key[0] in g)
-        _spawn(2, self.outdir, modes)
         for mode in modes:
-            for r in range(2):
+            if mode in NEEDS and (NEEDS[mode], 0) not in self:
+                self.__missing__((NEEDS[mode], 0))
+        world = WORLD.get(modes[0], 2)
+        _spawn(world, self.outdir, modes)
+        for mode in modes:
+            for r in range(world):
                 with open(os.path.join(self.outdir, f"result_{mode}_{r}.json")) as f:
                     self[mode, r] = json.load(f)
         return self[key]
@@ -202,7 +212,63 @@ def dp(tmp_path_factory):
         np.savez(os.path.join(outdir, f"step_{case}.npz"),
                  **{k: np.stack([s[k] for s in steps]) for k in steps[0]})
     return {"dir": outdir, "inputs": inputs, "jax": (jenc, jpred, jstate), "weights": weights,
-            "results": _Results(outdir)}
+            "results": _Results(outdir), "cache": {}}
+
+
+def _cached(dp, key, make):
+    if key not in dp["cache"]:
+        dp["cache"][key] = make()
+    return dp["cache"][key]
+
+
+def _one_process(dp, case: str) -> dict:
+    """The three steps of ``case`` in one process on the global batch: the
+    losses, the first step's metrics and gradients."""
+    def make():
+        state = worker.build_state(dp["weights"])
+        out = {"losses": []}
+        for i, step in enumerate(dp["inputs"][case]):
+            m = train_step(state, optim.ScheduleConfig(**worker.SCHED),
+                           StepConfig(**worker.STEP), **worker.local_half(step, 0, 1))
+            out["losses"].append(m["loss"])
+            if i == 0:
+                out["first"] = m
+                out["grads"] = {f"{name}/{k}": p.grad.numpy().copy()
+                                for name, mod in (("encoder", state.encoder),
+                                                  ("predictor", state.predictor))
+                                for k, p in mod.named_parameters()}
+        return out
+
+    return _cached(dp, ("one", case), make)
+
+
+def _jax_run(dp, case: str) -> dict:
+    """The JAX step on the global batch: the three steps' losses, the first
+    step's metrics and its gradients as state dicts (read from its first
+    AdamW moment, mu = (1 - b1) * g)."""
+    def make():
+        jenc, jpred, jstate = dp["jax"]
+        jstep = jax.jit(make_train_step(jenc, jpred, jax_optim.ScheduleConfig(**worker.SCHED),
+                                        JaxStepConfig(**worker.STEP)))
+        out = {"losses": []}
+        for i, s in enumerate(dp["inputs"][case]):
+            jstate, jm = jstep(jstate, jnp.asarray(s["video"]), jnp.asarray(s["audio"]),
+                               jnp.asarray(s["enc"]), jnp.asarray(s["pred"]),
+                               tuple(jnp.asarray(s[f"idx{k}"]) for k in range(len(MASKS))),
+                               jnp.asarray(s["union"]))
+            out["losses"].append(float(jm["loss"]))
+            if i == 0:
+                out["first"] = {k: float(jm[k]) for k in ("loss", "enc_grad_avg",
+                                                          "pred_grad_avg")}
+                out["grads"] = {}
+                for name, mu in (("encoder", jstate.enc_opt.mu),
+                                 ("predictor", jstate.pred_opt.mu)):
+                    to_sd = getattr(jax_torch_import, f"{name}_params_to_state_dict")
+                    sd = to_sd(jax.tree_util.tree_map(lambda x: np.asarray(x) / 0.1, mu))
+                    out["grads"].update({f"{name}/{k}": v for k, v in sd.items()})
+        return out
+
+    return _cached(dp, ("jax", case), make)
 
 
 # ---------------------------------------------------------------------------
@@ -230,43 +296,21 @@ def test_two_rank_step_matches_one_rank_and_jax(dp, case):
     first = dp["results"]["step", 0][f"{case}_first"]
 
     # one process, the global batch
-    state = worker.build_state(dp["weights"])
-    losses = []
-    for i, step in enumerate(dp["inputs"][case]):
-        m = train_step(state, optim.ScheduleConfig(**worker.SCHED), StepConfig(**worker.STEP),
-                       **worker.local_half(step, 0, 1))
-        losses.append(m["loss"])
-        if i == 0:
-            for k in ("loss", "enc_grad_avg", "pred_grad_avg"):
-                assert abs(first[k] - m[k]) <= 1e-5 * abs(m[k]), k
-            for name, mod in (("encoder", state.encoder), ("predictor", state.predictor)):
-                for k, p in mod.named_parameters():
-                    assert _rel_l2(grads[f"{name}/{k}"], p.grad.numpy()) <= 1e-4, (name, k)
-    np.testing.assert_allclose(r0["losses"], losses, rtol=2e-3)
+    one = _one_process(dp, case)
+    for k in ("loss", "enc_grad_avg", "pred_grad_avg"):
+        assert abs(first[k] - one["first"][k]) <= 1e-5 * abs(one["first"][k]), k
+    for k, g in one["grads"].items():
+        assert _rel_l2(grads[k], g) <= 1e-4, k
+    np.testing.assert_allclose(r0["losses"], one["losses"], rtol=2e-3)
 
     # the JAX step on the global batch
-    jenc, jpred, jstate = dp["jax"]
-    jstep = jax.jit(make_train_step(jenc, jpred, jax_optim.ScheduleConfig(**worker.SCHED),
-                                    JaxStepConfig(**worker.STEP)))
-    jax_losses = []
-    for i, s in enumerate(dp["inputs"][case]):
-        jstate, jm = jstep(jstate, jnp.asarray(s["video"]), jnp.asarray(s["audio"]),
-                           jnp.asarray(s["enc"]), jnp.asarray(s["pred"]),
-                           tuple(jnp.asarray(s[f"idx{k}"]) for k in range(len(MASKS))),
-                           jnp.asarray(s["union"]))
-        jax_losses.append(float(jm["loss"]))
-        if i == 0:
-            for k in ("loss", "enc_grad_avg", "pred_grad_avg"):
-                assert abs(first[k] - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
-            for name, mu in (("encoder", jstate.enc_opt.mu), ("predictor", jstate.pred_opt.mu)):
-                to_sd = getattr(jax_torch_import, f"{name}_params_to_state_dict")
-                want = to_sd(jax.tree_util.tree_map(lambda x: np.asarray(x) / 0.1, mu))
-                got = {k.split("/", 1)[1]: grads[k] for k in grads.files
-                       if k.startswith(name + "/")}
-                assert sorted(got) == sorted(want)
-                for k in got:
-                    assert _rel_l2(got[k], want[k]) <= 1e-4, (name, k)
-    np.testing.assert_allclose(r0["losses"], jax_losses, rtol=2e-3)
+    jx = _jax_run(dp, case)
+    for k in ("loss", "enc_grad_avg", "pred_grad_avg"):
+        assert abs(first[k] - jx["first"][k]) <= 1e-5 * abs(jx["first"][k]), k
+    assert sorted(grads.files) == sorted(jx["grads"])
+    for k in grads.files:
+        assert _rel_l2(grads[k], jx["grads"][k]) <= 1e-4, k
+    np.testing.assert_allclose(r0["losses"], jx["losses"], rtol=2e-3)
 
 
 def test_one_grad_reduction_per_step(dp):
@@ -284,6 +328,187 @@ def test_weights_identical_across_ranks(dp):
         d0 = dp["results"]["step", 0][case]["digests"]
         assert d0 == dp["results"]["step", 1][case]["digests"]
         assert len(set(d0)) == 3
+
+
+# ---------------------------------------------------------------------------
+# the fsdp axis
+# ---------------------------------------------------------------------------
+
+
+def _check_sharding(sharding: dict, shards: int, index: int) -> None:
+    """Every parameter is a DTensor whose local shard is this rank's chunk
+    (``index`` of ``shards``) of dimension 0, as ``torch.chunk`` cuts it."""
+    for name, params in sharding.items():
+        assert params, name
+        for k, (full, shard) in params.items():
+            per = -(-full[0] // shards)
+            rows = max(0, min(per, full[0] - index * per))
+            assert shard == [rows, *full[1:]], (name, k, full, shard)
+
+
+def _check_step_run(dp, prefix: str, mode: str, case: str, world: int, shards: int,
+                    weight_rel: float = 1e-5) -> None:
+    """A sharded run of the step mode ``mode`` against one process, the data
+    axis and JAX: first-step metrics within 1e-5 relative, gathered
+    gradients within 1e-4 relative L2, the three losses within 2e-3 of JAX's,
+    the weights after three steps within ``weight_rel`` relative L2 of the
+    data axis's; no gradient all-reduce (FSDP2's reduce-scatter averaged
+    every gradient) and two all-reduces over the shards (the norms, the
+    moments' statistics) a step; the same losses and whole weights on every rank. (Against one
+    process the weights differ more: AdamW divides each gradient by the
+    root of its second moment, which magnifies the sums' other order in the
+    smallest gradients.)"""
+    rs = [dp["results"][mode, r][case] for r in range(world)]
+    for r in rs[1:]:
+        assert r["losses"] == rs[0]["losses"] and r["digests"] == rs[0]["digests"]
+    for rank, r in enumerate(rs):
+        assert r["reductions"] == [0, 0, 0] and r["shard_reductions"] == [2, 2, 2]
+        _check_sharding(r["sharding"], shards, rank % shards)
+    first = dp["results"][mode, 0][f"{case}_first"]
+    one, jx = _one_process(dp, case), _jax_run(dp, case)
+    for k in ("loss", "enc_grad_norm", "pred_grad_norm", "enc_grad_avg", "pred_grad_avg",
+              "opt_mu_abs"):
+        assert abs(first[k] - one["first"][k]) <= 1e-5 * abs(one["first"][k]), k
+    for k in ("loss", "enc_grad_avg", "pred_grad_avg"):
+        assert abs(first[k] - jx["first"][k]) <= 1e-5 * abs(jx["first"][k]), k
+    grads = np.load(os.path.join(dp["dir"], f"{prefix}grads_{case}.npz"))
+    assert sorted(grads.files) == sorted(one["grads"]) == sorted(jx["grads"])
+    for k in grads.files:
+        assert _rel_l2(grads[k], one["grads"][k]) <= 1e-4, k
+        assert _rel_l2(grads[k], jx["grads"][k]) <= 1e-4, k
+    np.testing.assert_allclose(rs[0]["losses"], jx["losses"], rtol=2e-3)
+    dp["results"]["step", 0]  # the data axis's run writes weights_<case>.npz
+    got = np.load(os.path.join(dp["dir"], f"{prefix}weights_{case}.npz"))
+    want = np.load(os.path.join(dp["dir"], f"weights_{case}.npz"))
+    assert sorted(got.files) == sorted(want.files)
+    for k in got.files:
+        assert _rel_l2(got[k], want[k]) <= weight_rel, k
+
+
+@pytest.mark.parametrize("case", worker.CASES)
+def test_fsdp_step_matches_data_one_process_and_jax(dp, case):
+    """``mesh_fsdp: 2``: the encoder, predictor and target encoder sharded
+    over the two ranks, the step held against one process,
+    the data axis and JAX (``_check_step_run``)."""
+    _check_step_run(dp, "fsdp_", "fsdp_step", case, world=2, shards=2)
+
+
+def test_hsdp_step_matches_data_one_process_and_jax(dp):
+    """Four ranks on a 2 x 2 (data, fsdp) mesh, one sample each: FSDP2's
+    HSDP shards over 'fsdp' and replicates over 'data'; the step as
+    ``test_fsdp_step_matches_data_one_process_and_jax`` holds it, but the
+    weights within the gradients' 1e-4 of the two-rank data axis's: four
+    ranks of one sample sum the batch in another split than two of two."""
+    _check_step_run(dp, "hsdp_", "hsdp_step", "unequal", world=4, shards=2, weight_rel=1e-4)
+
+
+def _checkpoint(path: str) -> dict:
+    return torch.load(path, weights_only=True)
+
+
+def _assert_same_checkpoint(got: dict, want: dict, rel: float) -> None:
+    """The same keys, tensors of the same shapes and dtypes within ``rel``
+    relative L2, the same optimizer groups and state layout."""
+    assert sorted(got) == sorted(want)
+    for key in ("encoder", "predictor", "target_encoder"):
+        assert sorted(got[key]) == sorted(want[key]), key
+        for k, v in want[key].items():
+            assert got[key][k].shape == v.shape and got[key][k].dtype == v.dtype, (key, k)
+            assert _rel_l2(got[key][k], v) <= rel, (key, k)
+    assert got["opt"]["param_groups"] == want["opt"]["param_groups"]
+    assert sorted(got["opt"]["state"]) == sorted(want["opt"]["state"])
+    for i, s in want["opt"]["state"].items():
+        assert sorted(got["opt"]["state"][i]) == sorted(s)
+        for k, v in s.items():
+            assert got["opt"]["state"][i][k].shape == v.shape, (i, k)
+            assert _rel_l2(got["opt"]["state"][i][k], v) <= rel, (i, k)
+    for k in ("epoch", "batch_size", "world_size", "step"):
+        assert got[k] == want[k], k
+
+
+def test_fsdp_pretrain_matches_data_and_checkpoints_cross(dp):
+    """The avjepa app under ``mesh_fsdp: 2`` logs the losses of the
+    ``mesh_data: 2`` run on the same batches and writes, key by key, the
+    checkpoint it writes; the data run's checkpoint resumed under fsdp
+    gives the data run's resumed loss; the fsdp checkpoint loads strictly
+    in one process, weights and AdamW state equal to the file's, and takes
+    a step there."""
+    from avjepa_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+
+    r0, r1 = dp["results"]["fsdp_pretrain", 0], dp["results"]["fsdp_pretrain", 1]
+    data = dp["results"]["pretrain", 0]
+    assert r0["losses"] == r1["losses"] and r0["resume_losses"] == r1["resume_losses"]
+    np.testing.assert_allclose(r0["losses"], data["losses"], rtol=1e-5)
+    assert len(r0["resume_losses"]) == 1 and r0["summary"]["step"] == 3
+    np.testing.assert_allclose(r0["resume_losses"], data["resume_losses"][:1], rtol=1e-5)
+
+    tag = worker.pretrain_cfg("x")["logging"]["write_tag"]
+    fsdp_file = os.path.join(dp["dir"], "pretrain-fsdp", f"{tag}-latest.pth.tar")
+    got = _checkpoint(fsdp_file)
+    _assert_same_checkpoint(got, _checkpoint(os.path.join(dp["dir"], "pretrain",
+                                                          "step2.pth.tar")), 1e-5)
+    assert got["world_size"] == 2 and got["step"] == 2
+
+    # fsdp 2 -> one process
+    cfg = load_config(worker.pretrain_cfg(os.path.join(dp["dir"], "one-from-fsdp")))
+    handles = pretrain.setup(cfg, torch.device("cpu"))
+    try:
+        load_train_state(fsdp_file, handles.state)
+        assert handles.state.step == 2
+        again = os.path.join(dp["dir"], "one-from-fsdp.pth.tar")
+        save_train_state(again, handles.state, epoch=got["epoch"], loss=got["loss"],
+                         batch_size=got["batch_size"], lr=got["lr"], world_size=2)
+        _assert_same_checkpoint(_checkpoint(again), got, 0.0)
+        video, audio, _, masks = next(iter(handles.loader))
+        assert np.isfinite(handles.step(video, audio, masks)["loss"])
+    finally:
+        handles.loader.close()
+
+
+def _golden_losses(cfg, steps: int = 2) -> list:
+    """One process driving the two ranks' global batches (each rank's shard
+    of the sampler and its own collator, concatenated): the losses."""
+    handles = pretrain.setup(cfg, torch.device("cpu"))
+    handles.loader.close()
+    loaders, its = _shard_loaders(cfg, pretrain.build_dataset(cfg, cfg.layout()))
+    losses = []
+    try:
+        for ld in loaders:
+            ld.set_epoch(0)
+        for _ in range(steps):
+            losses.append(handles.step(*_global_batch(cfg, its))["loss"])
+    finally:
+        _close(loaders, its)
+    return losses
+
+
+def test_fsdp_vjepa_matches_single(dp):
+    """The vjepa app (video only) under ``mesh_fsdp: 2``: both ranks log the
+    global loss, which one process computes on the ranks' global batch."""
+    r0, r1 = dp["results"]["fsdp_vjepa", 0], dp["results"]["fsdp_vjepa", 1]
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
+    assert r0["summary"]["step"] == 2
+    d = worker.fsdp_vjepa_cfg(os.path.join(dp["dir"], "golden-vjepa"))
+    d["tpu"]["mesh_fsdp"] = 1
+    np.testing.assert_allclose(r0["losses"], _golden_losses(load_config(d)), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_fsdp_avprediction_matches_data_and_single(dp):
+    """avprediction under ``mesh_fsdp: 2``: the frozen target encoder and
+    predictor sharded, the probe replicated; the probe's losses and
+    the av_prediction eval equal the data axis's, whose losses one process
+    reproduces (``test_two_rank_avprediction_matches_single``)."""
+    r0, r1 = dp["results"]["fsdp_avprediction", 0], dp["results"]["fsdp_avprediction", 1]
+    data = dp["results"]["avprediction", 0]
+    assert r0["losses"] == r1["losses"] and r0["eval"] == r1["eval"]
+    np.testing.assert_allclose(r0["losses"], data["losses"], rtol=1e-5, atol=1e-7)
+    for k in ("mse_video", "mse_audio"):
+        np.testing.assert_allclose(r0["eval"][k], data["eval"][k], rtol=1e-5)
+    for rank, r in enumerate((r0, r1)):
+        probe = r["sharding"].pop("probe")
+        assert probe and all(shard is None for _, shard in probe.values())
+        _check_sharding(r["sharding"], 2, rank)
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +544,9 @@ def _shard_loaders(cfg, dataset):
 
 def _global_batch(cfg, its):
     """(video, audio, masks) of the global batch: the ranks' next local
-    batches concatenated."""
+    batches concatenated (audio None for a video-only layout)."""
     parts = [next(it) for it in its]
-    cat = lambda xs: np.concatenate(xs, 0)  # noqa: E731
+    cat = lambda xs: None if xs[0] is None else np.concatenate(xs, 0)  # noqa: E731
     masks = [MaskSet(*(cat([getattr(p[3][j], f.name) for p in parts])
                        for f in dataclasses.fields(MaskSet)))
              for j in range(len(cfg.mask))]
@@ -340,19 +565,8 @@ def test_two_rank_matches_single_rank_golden(dp):
     of the sampler and its own collator, concatenated) computes the losses
     the two ranks logged."""
     cfg = load_config(worker.pretrain_cfg(os.path.join(dp["dir"], "golden")))
-    handles = pretrain.setup(cfg, torch.device("cpu"))
-    handles.loader.close()
-    loaders, its = _shard_loaders(cfg, pretrain.build_dataset(cfg, cfg.layout()))
-    losses = []
-    try:
-        for ld in loaders:
-            ld.set_epoch(0)
-        for _ in range(2):
-            losses.append(handles.step(*_global_batch(cfg, its))["loss"])
-    finally:
-        _close(loaders, its)
-    np.testing.assert_allclose(dp["results"]["pretrain", 0]["losses"], losses, rtol=3e-4,
-                               atol=3e-4)
+    np.testing.assert_allclose(dp["results"]["pretrain", 0]["losses"], _golden_losses(cfg),
+                               rtol=3e-4, atol=3e-4)
 
 
 def test_cross_rank_sampler_and_collator_discipline(dp):
@@ -429,6 +643,7 @@ def test_two_rank_extract_shards_and_matches_single(dp, tmp_path):
     """Each rank writes the rows it owns; the shards hold every row once
     (rank 1's padded copy of row 0 is not written) and equal one process's
     embeddings."""
+    dp["results"]["extract", 0]  # the spawn that writes the shards
     rows = {}
     for r in range(2):
         z = np.load(os.path.join(dp["dir"], "features", f"features_r{r}.npz"))
@@ -453,9 +668,10 @@ def test_helpers_are_the_identity_without_a_process_group():
     assert dist.make_mesh(-1) == dist.Mesh(1, 1, 1)
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1"):
         dist.make_mesh(2)
-    for fsdp, tensor in ((2, 1), (1, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dist.make_mesh(-1, fsdp, tensor)
+    with pytest.raises(ValueError, match="mesh 0x2x1 != 1"):
+        dist.make_mesh(-1, 2)  # the fsdp axis needs its ranks
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dist.make_mesh(-1, 1, 2)
     before = dict(dist.REDUCTIONS)
     t = torch.tensor([1.0, 2.0])
     assert dist.reduce(t, "mean") is t
@@ -532,24 +748,25 @@ def test_launcher_batch_launch_folder_and_resume(tmp_path):
 
 
 def test_launcher_refuses_fsdp_and_a_missing_gpu(tmp_path, monkeypatch):
-    """``mesh_fsdp: 2`` raises (only the data axis is ported), in one process
-    and in two ranks, whose launcher then exits non-zero; a CUDA run on a
-    machine without one raises before any rank starts, in a torchrun rank,
-    and in one process: no fall back to the CPU."""
+    """The axis still refused, ``mesh_tensor: 2`` (the fsdp axis runs:
+    ``test_fsdp_*``), raises in one process and in two ranks, whose
+    launcher then exits non-zero; a CUDA run on a machine without one
+    raises before any rank starts, in a torchrun rank, and in one process:
+    no fall back to the CPU."""
     folder, _, (pre, _) = _tiny_configs(tmp_path, epochs=1)
     with open(pre) as f:
         d = yaml.safe_load(f)
-    d["tpu"]["mesh_fsdp"] = 2
+    d["tpu"]["mesh_tensor"] = 2
     with open(pre, "w") as f:
         yaml.safe_dump(d, f)
-    with pytest.raises(NotImplementedError, match="mesh_fsdp=2"):
+    with pytest.raises(NotImplementedError, match="mesh_tensor=2"):
         main_distributed.main(["--fname", pre, "--device", "cpu"])
     # the same through two ranks: the launcher exits with the failing rank's code
     res = subprocess.run(
         [sys.executable, "-m", "avjepa_tpu_torch.app.main_distributed", "--nproc-per-node",
          "2", "--device", "cpu", "--dist-timeout", "60", "--fname", pre],
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=JOIN_S)
-    assert res.returncode != 0 and "mesh_fsdp=2" in res.stderr, res.stderr[-3000:]
+    assert res.returncode != 0 and "mesh_tensor=2" in res.stderr, res.stderr[-3000:]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -10,23 +10,34 @@ writing ``result_<mode>_<rank>.json`` (and the step mode's gradients) into
   - ``step``: the step inputs ``step_<case>.npz`` and weights
     ``weights.pt`` written by the test; each rank takes its half of every
     global batch and runs three ``train_step``s, recording losses, the
-    gradient all-reduces per step and a digest of its weights;
+    gradient all-reduces per step and a digest of its weights; rank 0
+    writes the first step's gradients and the last step's weights;
+  - ``fsdp_step``: the same under ``mesh_fsdp: 2`` (the models sharded over
+    the two ranks), recording which parameters are sharded;
+  - ``hsdp_step``: the same on four ranks, a 2 x 2 (data, fsdp) mesh;
   - ``info``: the collator's masks at the local batch (same seed on every
     rank) and the sampler's shard;
-  - ``pretrain``: the pretrain app for 2 steps, then resumed for 2;
+  - ``pretrain``: the pretrain app for 2 steps (a copy of its checkpoint
+    kept as ``step2.pth.tar``), then resumed for 2;
+  - ``fsdp_pretrain``: the pretrain app under ``mesh_fsdp: 2`` for 2 steps,
+    then resumed from ``pretrain``'s ``step2.pth.tar`` for 1;
+  - ``fsdp_vjepa``: the vjepa app under ``mesh_fsdp: 2`` for 2 steps;
   - ``preempt``: SIGTERM to rank 1 only, mid-run (the video-only app: 8
     tokens, the cheapest steps);
   - ``eval``: the video eval and the image eval, each validation only,
     then 2 probe steps;
   - ``extract``: the extract app over 11 rows;
   - ``avprediction``: 2 probe steps on ``pretrain``'s checkpoint, the
-    example, and the av_prediction eval.
+    example, and the av_prediction eval;
+  - ``fsdp_avprediction``: the probe steps and the eval under
+    ``mesh_fsdp: 2`` (the frozen models sharded).
 No JAX is imported here.
 """
 
 import hashlib
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -145,11 +156,24 @@ def read_losses(path: str) -> list:
 
 
 def digest(modules) -> str:
+    """A hash of the modules' whole weights (gathered where sharded)."""
+    from avjepa_tpu_torch.parallel import fsdp
+
     h = hashlib.sha256()
     for m in modules:
         for v in m.state_dict().values():
-            h.update(v.detach().contiguous().numpy().tobytes())
+            h.update(fsdp.full_tensor(v).contiguous().numpy().tobytes())
     return h.hexdigest()
+
+
+def sharding(modules: dict) -> dict:
+    """Each module's parameters: name -> (global shape, this rank's shard's
+    shape, or None where the parameter is not sharded)."""
+    from avjepa_tpu_torch.parallel import fsdp
+
+    return {name: {k: [list(p.shape), list(fsdp.local(p).shape) if fsdp.is_sharded(p) else None]
+                   for k, p in m.named_parameters()}
+            for name, m in modules.items()}
 
 
 def local_half(inputs: dict, rank: int, world: int) -> dict:
@@ -165,7 +189,7 @@ def local_half(inputs: dict, rank: int, world: int) -> dict:
                 union_idx=t(inputs["union"][:, lo:hi]))
 
 
-def build_state(weights: dict):
+def build_state(weights: dict, mesh=None):
     from avjepa_tpu_torch.layout import TokenLayout
     from avjepa_tpu_torch.models.encoder import Encoder
     from avjepa_tpu_torch.models.predictor import Predictor
@@ -175,41 +199,66 @@ def build_state(weights: dict):
     encoder, predictor = Encoder(layout, **ENC), Predictor(layout, **PRED)
     encoder.load_state_dict(weights["encoder"])
     predictor.load_state_dict(weights["predictor"])
-    return init_state(encoder, predictor)
+    return init_state(encoder, predictor, mesh=mesh)
 
 
-def run_step(rank: int, world: int, outdir: str) -> dict:
+def run_steps(rank: int, world: int, outdir: str, prefix: str = "", data: int = -1,
+              fsdp_: int = 1, cases=CASES) -> dict:
+    """Three ``train_step``s of each case on this rank's rows, on a
+    ``data`` x ``fsdp_`` mesh; rank 0 writes ``<prefix>grads_<case>.npz``
+    (the first step's gradients, whole) and ``<prefix>weights_<case>.npz``
+    (the three models' weights after the last step)."""
     import torch
 
-    from avjepa_tpu_torch.parallel import dist
+    from avjepa_tpu_torch.parallel import dist, fsdp
     from avjepa_tpu_torch.train import optim
     from avjepa_tpu_torch.train.step import StepConfig, train_step
 
+    mesh = dist.make_mesh(data, fsdp_, 1, "cpu")
     out = {}
-    for case in CASES:
-        state = build_state(torch.load(os.path.join(outdir, "weights.pt")))
+    for case in cases:
+        state = build_state(torch.load(os.path.join(outdir, "weights.pt")), mesh.device_mesh)
+        models = {"encoder": state.encoder, "predictor": state.predictor,
+                  "target_encoder": state.target_encoder}
         z = np.load(os.path.join(outdir, f"step_{case}.npz"))
-        losses, reductions, digests, counts = [], [], [], []
+        losses, reductions, shards, digests, counts = [], [], [], [], []
         for i in range(z["video"].shape[0]):
             inputs = local_half({k: z[k][i] for k in z.files}, rank, world)
             counts.append(inputs["pred_masks"].flatten(1).sum(1).tolist())
-            before = dist.REDUCTIONS["grads"]
+            before = dict(dist.REDUCTIONS)
             m = train_step(state, optim.ScheduleConfig(**SCHED), StepConfig(**STEP), **inputs)
-            reductions.append(dist.REDUCTIONS["grads"] - before)
+            reductions.append(dist.REDUCTIONS["grads"] - before.get("grads", 0))
+            shards.append(dist.REDUCTIONS["shards"] - before.get("shards", 0))
             losses.append(m["loss"])
-            digests.append(digest([state.encoder, state.predictor, state.target_encoder]))
+            digests.append(digest(models.values()))
             if i == 0:
-                out[f"{case}_first"] = {k: m[k] for k in ("loss", "enc_grad_avg",
-                                                          "pred_grad_avg")}
+                out[f"{case}_first"] = {k: m[k] for k in ("loss", "enc_grad_norm",
+                                                          "pred_grad_norm", "enc_grad_avg",
+                                                          "pred_grad_avg", "opt_mu_abs")}
+                grads = {f"{name}/{k}": fsdp.full_tensor(p.grad).numpy()
+                         for name in ("encoder", "predictor")
+                         for k, p in models[name].named_parameters()}
                 if rank == 0:
-                    np.savez(os.path.join(outdir, f"grads_{case}.npz"), **{
-                        f"{name}/{k}": p.grad.numpy()
-                        for name, mod in (("encoder", state.encoder),
-                                          ("predictor", state.predictor))
-                        for k, p in mod.named_parameters()})
-        out[case] = {"losses": losses, "reductions": reductions, "digests": digests,
-                     "pred_counts": counts}
+                    np.savez(os.path.join(outdir, f"{prefix}grads_{case}.npz"), **grads)
+        weights = {f"{name}/{k}": v.numpy() for name, mod in models.items()
+                   for k, v in fsdp.full_state_dict(mod).items()}  # {} but on rank 0
+        if rank == 0:
+            np.savez(os.path.join(outdir, f"{prefix}weights_{case}.npz"), **weights)
+        out[case] = {"losses": losses, "reductions": reductions, "shard_reductions": shards,
+                     "digests": digests, "pred_counts": counts, "sharding": sharding(models)}
     return out
+
+
+def run_step(rank: int, world: int, outdir: str) -> dict:
+    return run_steps(rank, world, outdir)
+
+
+def run_fsdp_step(rank: int, world: int, outdir: str) -> dict:
+    return run_steps(rank, world, outdir, "fsdp_", data=1, fsdp_=2)
+
+
+def run_hsdp_step(rank: int, world: int, outdir: str) -> dict:
+    return run_steps(rank, world, outdir, "hsdp_", data=2, fsdp_=2, cases=("unequal",))
 
 
 def run_info(rank: int, world: int, outdir: str) -> dict:
@@ -246,7 +295,10 @@ def run_pretrain(rank: int, world: int, outdir: str) -> dict:
     csv = os.path.join(folder, f"{tag}_r{rank}.csv")
     pretrain.run(load_config(d), device="cpu")
     losses = read_losses(csv)
-    saved = torch.load(os.path.join(folder, f"{tag}-latest.pth.tar"), weights_only=True)
+    latest = os.path.join(folder, f"{tag}-latest.pth.tar")
+    saved = torch.load(latest, weights_only=True)
+    if rank == 0:
+        shutil.copy(latest, os.path.join(folder, "step2.pth.tar"))
     os.replace(csv, csv + ".phase1")
     d = pretrain_cfg(folder, optimization={"epochs": 2}, meta={"load_checkpoint": True})
     summary = pretrain.run(load_config(d), device="cpu")
@@ -327,9 +379,73 @@ def run_avprediction(rank: int, world: int, outdir: str) -> dict:
             "example": example, "eval": summary}
 
 
+def run_fsdp_pretrain(rank: int, world: int, outdir: str) -> dict:
+    """``pretrain``'s first run under ``mesh_fsdp: 2``, then ``pretrain``'s
+    step-2 checkpoint (written at ``mesh_data: 2``) resumed under it for one
+    step."""
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+
+    folder = os.path.join(outdir, "pretrain-fsdp")
+    d = pretrain_cfg(folder, tpu={"mesh_fsdp": 2})
+    tag = d["logging"]["write_tag"]
+    csv = os.path.join(folder, f"{tag}_r{rank}.csv")
+    pretrain.run(load_config(d), device="cpu")
+    losses = read_losses(csv)
+    resume = os.path.join(outdir, "pretrain-fsdp-resume")
+    if rank == 0:
+        os.makedirs(resume, exist_ok=True)
+        shutil.copy(os.path.join(outdir, "pretrain", "step2.pth.tar"),
+                    os.path.join(resume, f"{tag}-latest.pth.tar"))
+    d = pretrain_cfg(resume, tpu={"mesh_fsdp": 2}, optimization={"epochs": 2},
+                     meta={"load_checkpoint": True})
+    summary = pretrain.run(load_config(d), max_steps=1, device="cpu")
+    return {"losses": losses, "resume_losses": read_losses(os.path.join(resume,
+                                                                        f"{tag}_r{rank}.csv")),
+            "summary": summary}
+
+
+def fsdp_vjepa_cfg(folder: str) -> dict:
+    d = pretrain_cfg(folder, data={"dataset_type": "videodataset"}, tpu={"mesh_fsdp": 2})
+    d["app"] = "vjepa"
+    return d
+
+
+def run_fsdp_vjepa(rank: int, world: int, outdir: str) -> dict:
+    from avjepa_tpu_torch.registry import app_main
+
+    d = fsdp_vjepa_cfg(os.path.join(outdir, "vjepa-fsdp"))
+    summary = app_main("vjepa", d, device="cpu")
+    return {"losses": read_losses(os.path.join(d["logging"]["folder"],
+                                               f"{d['logging']['write_tag']}_r{rank}.csv")),
+            "summary": summary}
+
+
+def run_fsdp_avprediction(rank: int, world: int, outdir: str) -> dict:
+    """``avprediction``'s probe steps and eval under ``mesh_fsdp: 2``, and
+    which parameters of the frozen models are sharded."""
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.evals import av_prediction
+    from avjepa_tpu_torch.train import avprediction
+
+    d = prediction_cfg(os.path.join(outdir, "avprediction-fsdp"), pretrain_checkpoint(outdir))
+    d["tpu"]["mesh_fsdp"] = 2
+    avprediction.run(load_config(d), device="cpu")
+    summary = av_prediction.run(load_config(d), max_batches=4, device="cpu")
+    handles, state, _ = avprediction.setup_probe(load_config(d), "cpu")
+    handles.loader.close()
+    tag = d["logging"]["write_tag"]
+    return {"losses": read_losses(os.path.join(d["logging"]["folder"], f"{tag}_probe_r{rank}.csv")),
+            "eval": summary,
+            "sharding": sharding({"target_encoder": handles.state.target_encoder,
+                                  "predictor": handles.state.predictor, "probe": state.probe})}
+
+
 MODES = {"step": run_step, "info": run_info, "pretrain": run_pretrain,
          "preempt": run_preempt, "eval": run_eval, "extract": run_extract,
-         "avprediction": run_avprediction}
+         "avprediction": run_avprediction, "fsdp_step": run_fsdp_step,
+         "hsdp_step": run_hsdp_step, "fsdp_pretrain": run_fsdp_pretrain,
+         "fsdp_vjepa": run_fsdp_vjepa, "fsdp_avprediction": run_fsdp_avprediction}
 
 
 def main():
