@@ -17,20 +17,44 @@
 // R = 39,936 and C = 1024 in bf16, 163.6 MB (0.049 ms) and 245.4 MB
 // (0.073 ms) at 3.35 TB/s.
 //
-// Design. One warp per row. Each lane holds its share of the row in
-// registers, loaded 16 bytes at a time (8 bf16/f16 or 4 f32 values; a chunk
-// spans 32 lanes), so every input is read from device memory once and every
-// row reduction is a warp shuffle. The TPU kernel adds dgamma/dbeta across
-// its sequential row blocks in VMEM; Hopper blocks run in no order, so each
-// block of 64 rows writes f32 partial sums [num_blocks, C] (its 8 warps'
-// sums added in a fixed order through shared memory) and a second kernel
-// adds the partials over the blocks in a fixed order: deterministic, no
-// atomics, as the attention backward kernels chose. A ragged C (not a
-// multiple of the vector width, or rows not 16-byte aligned) takes scalar
-// loads with masked tails; a ragged R masks the last block's rows. Rows
-// wider than the register path's 1536 columns take a streaming variant that
-// reads the row again (from L1/L2) for each pass. Not yet used: TMA,
-// persistent blocks, several rows per warp in flight.
+// K5's design. One warp per row, 8 rows a block. Each lane holds its share of
+// the row in registers, loaded 16 bytes at a time (8 bf16/f16 or 4 f32
+// values; a chunk spans 32 lanes), so every input is read from device memory
+// once and every row reduction is a warp shuffle. A ragged C (not a multiple
+// of the vector width, or rows not 16-byte aligned) takes scalar loads with
+// masked tails. Rows wider than 1536 columns take a streaming variant that
+// reads the row again (from L1/L2) for each pass.
+//
+// K6's design (the register path, C <= 1536):
+// - Persistent blocks. One block of 8 warps an SM (the grid is the SM count,
+//   cut to the row tiles), registers unbounded (up to 255 a thread). A tile
+//   is 8 x (rows a warp) rows; block b takes tiles b, b + grid, b + 2 grid,
+//   ... in that order, and each lane keeps its columns' dgamma/dbeta sums in
+//   registers across all of them.
+// - A ring of row tiles. Each warp stages its rows of x and dy in shared
+//   memory with 16-byte cp.async, 2-4 stages deep (deeper for narrow rows),
+//   so the next rows load while the current ones reduce. Each lane copies
+//   exactly the chunks it reads, so a lane waits on its own copy groups and
+//   no barrier runs in the loop. Each pass over the row (mean, variance, the
+//   two sums, dx) reads its chunks from the ring again, so registers hold
+//   the sums and one chunk, not the row. gamma sits in shared memory as f32.
+//   dx leaves by 16-byte stores.
+// - Width classes. A row is spread over L = 32, 16 or 8 lanes (1, 2 or 4
+//   rows a warp at once), whichever pads the row least in chunks of L x 16
+//   bytes: C = 1024 and 1280 take 32 lanes, 384 takes 16 (3 chunks, not
+//   1.5), 192 takes 8 (bf16). Row sums run over each chunk, then over a
+//   lane's chunks in order, then as a butterfly over the L lanes.
+// - One fixed-order sum. At its end a block adds its lane groups' sums in
+//   row-slot order through shared memory (the ring reused) and writes one
+//   partial row pair part[0 or 1][block][:] (1 MB at 132 x 1024); a second
+//   kernel adds the grid's partials in a fixed order (thread row r takes
+//   blocks r, r + 32, ... in order, then the 32 row sums in order). The
+//   order depends only on R, C and the grid, so two runs give the same
+//   bits; no atomics.
+// A ragged C takes scalar loads into the same ring, with masked tails; a
+// ragged R zero-fills the rows past R (they add exact zeros) and stores no
+// dx for them. Rows wider than 1536 columns take a streaming variant with 64
+// rows a block and the same final sum.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -42,8 +66,12 @@ namespace {
 constexpr int LN_WARPS = 8;
 constexpr int LN_THREADS = LN_WARPS * 32;
 constexpr int BWD_ROWS_PER_WARP = 8;
-constexpr int BWD_ROWS = LN_WARPS * BWD_ROWS_PER_WARP;  // rows per backward block
+constexpr int BWD_ROWS = LN_WARPS * BWD_ROWS_PER_WARP;  // rows a streaming backward block
 constexpr int REG_MAX_C = 1536;  // widest row the register path holds
+constexpr int BWD_WARPS = 8;     // warps of a persistent backward block, one block an SM
+constexpr int BWD_THREADS = BWD_WARPS * 32;
+constexpr int RED_COLS = 16;  // the final sum's block: 16 columns x 32 rows of blocks
+constexpr int RED_ROWS = 32;
 
 template <typename T> struct Elt;
 
@@ -216,82 +244,291 @@ ln_fwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// K6, register path: a block takes 64 rows (8 a warp); writes dx and the
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy to shared memory; with valid == false the 16 bytes are
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// a 16-byte shared-memory load that is issued where it stands (volatile): a
+// row read again for each pass costs no registers between the passes
+__device__ __forceinline__ uint4 lds128(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ float4 lds128f(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(smem_addr(p)));
+  return v;
+}
+
+// sum over the L lanes of a lane group (a butterfly: every lane ends with it)
+template <int L>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ float elt(const uint4& u, int j) {
+  return Elt<T>::to_f(reinterpret_cast<const T*>(&u)[j]);
+}
+
+// ring stages of a warp: deeper for narrow rows (rings twice as deep measured
+// no faster on the H100)
+constexpr int bwd_stages(int nchunk) { return nchunk <= 3 ? 4 : nchunk == 4 ? 3 : 2; }
+
+// The register path's geometry for rows of L lanes and NCHUNK chunks a lane.
+template <typename T, int L, int NCHUNK>
+struct BwdShape {
+  static constexpr int VEC = Elt<T>::VEC;
+  static constexpr int RPW = 32 / L;                   // rows a warp takes at once
+  static constexpr int TILE_ROWS = BWD_WARPS * RPW;    // rows a tile
+  static constexpr int WIDTH = NCHUNK * L * VEC;       // the row padded to whole chunks
+  static constexpr int S = bwd_stages(NCHUNK);
+  static constexpr int STAGE = 2 * NCHUNK * 32;        // uint4 of a warp's stage: x, then dy
+  static constexpr int RING = BWD_WARPS * S * STAGE;   // uint4
+  static constexpr int SMEM = WIDTH * 4 + RING * 16;   // gamma (f32), then the ring
+  // the block's final sum reuses the ring: [dgamma, dbeta][TILE_ROWS][WIDTH] f32
+  static_assert(2 * TILE_ROWS * WIDTH * 4 <= RING * 16, "block sum does not fit the ring");
+};
+
+// K6, register path: persistent blocks over row tiles; writes dx and the
 // block's dgamma/dbeta partial row part[0 or 1][blockIdx.x][:]
-template <typename T, int NCHUNK>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-              const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
-              long long R, int C, float eps, bool vec) {
-  constexpr int VEC = Elt<T>::VEC;
-  constexpr int EPT = NCHUNK * VEC;
-  __shared__ float red[2][LN_WARPS][32 * VEC];
+template <typename T, int L, int NCHUNK>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ln_bwd_kernel(const void* x_, const float* __restrict__ gamma, const void* dy_, void* dx_,
+              float* __restrict__ part, long long R, int C, float eps, bool vec) {
+  using Sh = BwdShape<T, L, NCHUNK>;
+  constexpr int VEC = Sh::VEC;
+  constexpr int Q = VEC / 4;  // float4 of gamma a chunk
+  constexpr int S = Sh::S;
+  const T* __restrict__ x = static_cast<const T*>(x_);
+  const T* __restrict__ dy = static_cast<const T*>(dy_);
+  T* __restrict__ dx = static_cast<T*>(dx_);
+  extern __shared__ __align__(16) uint4 smem[];
+  float4* gam_s = reinterpret_cast<float4*>(smem);  // [NCHUNK][Q][L]: a lane's chunk, 4 at a time
+  uint4* ring = smem + Sh::WIDTH / 4;                // [warp][stage][x, dy][NCHUNK][lane]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float acc_g[EPT], acc_b[EPT];
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) acc_g[i] = acc_b[i] = 0.0f;
+  const int li = lane % L;  // lane within its row's group
+  const int slot = warp * Sh::RPW + lane / L;  // the group's row within a tile
 
-  const long long row0 = static_cast<long long>(blockIdx.x) * BWD_ROWS + warp * BWD_ROWS_PER_WARP;
-  for (int r = 0; r < BWD_ROWS_PER_WARP; ++r) {
-    const long long row = row0 + r;
-    if (row >= R) break;
-    float xv[EPT], g[EPT];
-    load_row<T, NCHUNK>(x + row * C, C, lane, vec, xv);
-    load_row<T, NCHUNK>(dy + row * C, C, lane, vec, g);
-    const float rstd = center<EPT, VEC>(xv, C, lane, eps);
+  for (int i = threadIdx.x; i < Sh::WIDTH / 4; i += BWD_THREADS) {
+    const int l = i % L, q = (i / L) % Q, k = i / (L * Q);
+    const int c = (k * L + l) * VEC + 4 * q;
+    gam_s[i] = make_float4(c < C ? gamma[c] : 0.0f, c + 1 < C ? gamma[c + 1] : 0.0f,
+                           c + 2 < C ? gamma[c + 2] : 0.0f, c + 3 < C ? gamma[c + 3] : 0.0f);
+  }
+
+  const long long ntiles = (R + Sh::TILE_ROWS - 1) / Sh::TILE_ROWS;
+  const int mine =
+      blockIdx.x < ntiles ? static_cast<int>((ntiles - 1 - blockIdx.x) / gridDim.x) + 1 : 0;
+  uint4* wring = ring + warp * S * Sh::STAGE + lane;
+  auto row_of = [&](int i) {
+    return (blockIdx.x + static_cast<long long>(i) * gridDim.x) * Sh::TILE_ROWS + slot;
+  };
+  // stage i % S <- this lane's chunks of x and dy in its row of tile i (zero
+  // past R and past C); one copy group a call, empty past the last tile
+  auto issue = [&](int i) {
+    if (i < mine) {
+      const long long row = row_of(i);
+      uint4* st = wring + (i % S) * Sh::STAGE;
+#pragma unroll
+      for (int k = 0; k < NCHUNK; ++k) {
+        const int c0 = (k * L + li) * VEC;
+        if (vec) {
+          const bool in = row < R && c0 < C;
+          const long long off = in ? row * C + c0 : 0;
+          cp_async16(st + k * 32, x + off, in);
+          cp_async16(st + (NCHUNK + k) * 32, dy + off, in);
+        } else {
+          uint4 ux, ud;
+          T* ex = reinterpret_cast<T*>(&ux);
+          T* ed = reinterpret_cast<T*>(&ud);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const bool in = row < R && c0 + j < C;
+            ex[j] = in ? x[row * C + c0 + j] : Elt<T>::from_f(0.0f);
+            ed[j] = in ? dy[row * C + c0 + j] : Elt<T>::from_f(0.0f);
+          }
+          st[k * 32] = ux;
+          st[(NCHUNK + k) * 32] = ud;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc_g[NCHUNK * VEC], acc_b[NCHUNK * VEC];
+#pragma unroll
+  for (int i = 0; i < NCHUNK * VEC; ++i) acc_g[i] = acc_b[i] = 0.0f;
+  __syncthreads();  // gamma in shared memory
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  for (int i = 0; i < mine; ++i) {
+    issue(i + S - 1);        // into the stage this lane read in iteration i - 1
+    cp_async_wait<S - 1>();  // this lane's copies of tile i have landed
+    const uint4* sx = wring + (i % S) * Sh::STAGE;
+    const uint4* sd = sx + NCHUNK * 32;
+    // each pass reads its chunks of x and dy from the ring again: registers
+    // hold the sums and the chunk in use, never the whole row
+    auto xk = [&](int k) { return lds128(sx + k * 32); };
+    auto dk = [&](int k) { return lds128(sd + k * 32); };
+    auto gam = [&](int k, float* g) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 f = lds128f(gam_s + (k * Q + q) * L + li);
+        g[4 * q] = f.x;
+        g[4 * q + 1] = f.y;
+        g[4 * q + 2] = f.z;
+        g[4 * q + 3] = f.w;
+      }
+    };
+
+    // mean and rstd by two passes over the row. A lane's sums run over each
+    // chunk's VEC values, then over its chunks in order: NCHUNK short chains
+    // in flight, not one long one. Zeros past C add nothing to the mean; the
+    // square sum masks them (per value only in a chunk that straddles C).
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NCHUNK; ++k) {
+      const uint4 u = xk(k);
+      float p = 0.0f;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) p += elt<T>(u, j);
+      s += p;
+    }
+    const float mean = group_sum<L>(s) / C;
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NCHUNK; ++k) {
+      const int c0 = (k * L + li) * VEC;
+      const uint4 u = xk(k);
+      float p = 0.0f;
+      if (c0 + VEC <= C) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = elt<T>(u, j) - mean;
+          p += d * d;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = c0 + j < C ? elt<T>(u, j) - mean : 0.0f;
+          p += d * d;
+        }
+      }
+      ss += p;
+    }
+    const float rstd = rsqrtf(group_sum<L>(ss) / C + eps);
+
+    // the sums over the row, chunk by chunk as above, and the row's share of
+    // dgamma/dbeta (a row past R is zeros: xhat = 0 and dy = 0 add exact zeros)
     float sg = 0.0f, sgx = 0.0f;
 #pragma unroll
     for (int k = 0; k < NCHUNK; ++k) {
-      float gam[VEC];
-      load_param<VEC>(gamma, (k * 32 + lane) * VEC, C, vec, gam);
+      const uint4 u = xk(k), v = dk(k);
+      float g[VEC];
+      gam(k, g);
+      float pg = 0.0f, pgx = 0.0f;
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const int i = k * VEC + j;
-        const float xhat = xv[i] * rstd;
-        const float d = g[i];
-        acc_g[i] += d * xhat;
-        acc_b[i] += d;
-        const float gg = d * gam[j];
-        sg += gg;
-        sgx += gg * xhat;
-        xv[i] = xhat;
-        g[i] = gg;
+        const float xhat = (elt<T>(u, j) - mean) * rstd;
+        const float d = elt<T>(v, j);
+        acc_g[k * VEC + j] += d * xhat;
+        acc_b[k * VEC + j] += d;
+        const float gg = d * g[j];
+        pg += gg;
+        pgx += gg * xhat;
+      }
+      sg += pg;
+      sgx += pgx;
+    }
+    const float a = group_sum<L>(sg) / C;
+    const float bt = group_sum<L>(sgx) / C;
+
+    const long long row = row_of(i);
+    if (row < R) {
+#pragma unroll
+      for (int k = 0; k < NCHUNK; ++k) {
+        const int c0 = (k * L + li) * VEC;
+        if (c0 < C) {
+          const uint4 u = xk(k), v = dk(k);
+          float g[VEC];
+          gam(k, g);
+          uint4 raw;
+          T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float xhat = (elt<T>(u, j) - mean) * rstd;
+            e[j] = Elt<T>::from_f(rstd * (elt<T>(v, j) * g[j] - a - xhat * bt));
+          }
+          T* out = dx + row * C + c0;
+          if (vec) {
+            *reinterpret_cast<uint4*>(out) = raw;
+          } else {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              if (c0 + j < C) out[j] = e[j];
+            }
+          }
+        }
       }
     }
-    const float a = warp_sum(sg) / C;
-    const float bt = warp_sum(sgx) / C;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) g[i] = rstd * (g[i] - a - xv[i] * bt);
-    store_row<T, NCHUNK>(dx + row * C, C, lane, vec, g);
   }
 
-  // the block's partial sums, chunk by chunk: warp w's share lands in
-  // red[.][w], then one thread per column adds the 8 warps in order
-  float* part_g = part + static_cast<size_t>(blockIdx.x) * C;
-  float* part_b = part + static_cast<size_t>(gridDim.x + blockIdx.x) * C;
+  // the block's partial row pair: each lane group's sums land in the ring
+  // (every warp is done with it), then one thread a column adds the groups
+  // in slot order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int k = 0; k < NCHUNK; ++k) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      red[0][warp][lane * VEC + j] = acc_g[k * VEC + j];
-      red[1][warp][lane * VEC + j] = acc_b[k * VEC + j];
+    for (int q = 0; q < Q; ++q) {
+      const int c = (k * L + li) * VEC + 4 * q;
+      const int i = k * VEC + 4 * q;
+      *reinterpret_cast<float4*>(red + slot * Sh::WIDTH + c) =
+          make_float4(acc_g[i], acc_g[i + 1], acc_g[i + 2], acc_g[i + 3]);
+      *reinterpret_cast<float4*>(red + (Sh::TILE_ROWS + slot) * Sh::WIDTH + c) =
+          make_float4(acc_b[i], acc_b[i + 1], acc_b[i + 2], acc_b[i + 3]);
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < 32 * VEC; t += LN_THREADS) {
-      const int c = k * 32 * VEC + t;
-      if (c < C) {
-        float sgam = 0.0f, sbet = 0.0f;
-#pragma unroll
-        for (int w = 0; w < LN_WARPS; ++w) {
-          sgam += red[0][w][t];
-          sbet += red[1][w][t];
-        }
-        part_g[c] = sgam;
-        part_b[c] = sbet;
-      }
+  }
+  __syncthreads();
+  float* part_g = part + static_cast<size_t>(blockIdx.x) * C;
+  float* part_b = part + static_cast<size_t>(gridDim.x + blockIdx.x) * C;
+  for (int c = threadIdx.x; c < C; c += BWD_THREADS) {
+    float sgam = 0.0f, sbet = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < Sh::TILE_ROWS; ++r) {
+      sgam += red[r * Sh::WIDTH + c];
+      sbet += red[(Sh::TILE_ROWS + r) * Sh::WIDTH + c];
     }
-    __syncthreads();
+    part_g[c] = sgam;
+    part_b[c] = sbet;
   }
 }
 
@@ -358,25 +595,25 @@ ln_bwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// out[w][c] = sum over blocks b (in order of b mod 8, then of the 8 groups)
-// of part[w][b][c], for w = 0 (dgamma) and 1 (dbeta); block (32, 8), grid
-// (ceil(C / 32), 2)
-__global__ void __launch_bounds__(256)
+// out[w][c] = sum over blocks b of part[w][b][c], for w = 0 (dgamma) and 1
+// (dbeta): thread row r adds blocks r, r + 32, r + 64, ... in order, then row
+// 0 adds the 32 row sums in order; block (16, 32), grid (ceil(C / 16), 2)
+__global__ void __launch_bounds__(RED_COLS * RED_ROWS)
 ln_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int nb, int C) {
-  __shared__ float red[8][32];
-  const int c = blockIdx.x * 32 + threadIdx.x;
+  __shared__ float red[RED_ROWS][RED_COLS + 1];
+  const int c = blockIdx.x * RED_COLS + threadIdx.x;
   const float* p = part + static_cast<size_t>(blockIdx.y) * nb * C;
   float s = 0.0f;
   if (c < C) {
-#pragma unroll 4
-    for (int b = threadIdx.y; b < nb; b += 8) s += p[static_cast<size_t>(b) * C + c];
+#pragma unroll 8
+    for (int b = threadIdx.y; b < nb; b += RED_ROWS) s += p[static_cast<size_t>(b) * C + c];
   }
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && c < C) {
     float t = 0.0f;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) t += red[w][threadIdx.x];
+    for (int r = 0; r < RED_ROWS; ++r) t += red[r][threadIdx.x];
     out[static_cast<size_t>(blockIdx.y) * C + c] = t;
   }
 }
@@ -401,16 +638,6 @@ cudaError_t fwd_launch(const void* x, const float* gamma, const float* beta, voi
   const dim3 grid(static_cast<unsigned>((R + LN_WARPS - 1) / LN_WARPS));
   ln_fwd_kernel<T, NCHUNK><<<grid, LN_THREADS, 0, stream>>>(
       static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), R, C, eps, vec);
-  return cudaGetLastError();
-}
-
-template <typename T, int NCHUNK>
-cudaError_t bwd_launch(const void* x, const float* gamma, const void* dy, void* dx, float* part,
-                       long long R, int C, float eps, bool vec, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(bwd_blocks(R)));
-  ln_bwd_kernel<T, NCHUNK><<<grid, LN_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), part, R,
-      C, eps, vec);
   return cudaGetLastError();
 }
 
@@ -446,42 +673,124 @@ cudaError_t ln_fwd(const void* x, const float* gamma, const float* beta, void* y
   return cudaErrorInvalidValue;
 }
 
+using BwdKernel = void (*)(const void*, const float*, const void*, void*, float*, long long, int,
+                           float, bool);
+
+// a register-path variant: its kernel, shared memory and rows a tile
+struct BwdPlan {
+  BwdKernel kernel;
+  int smem;
+  int tile_rows;
+};
+
+// (the dynamic shared memory above 48 KB is allowed on the current device)
+template <typename T, int L, int NCHUNK>
+cudaError_t bwd_plan(BwdPlan* plan) {
+  using Sh = BwdShape<T, L, NCHUNK>;
+  const BwdKernel kernel = ln_bwd_kernel<T, L, NCHUNK>;
+  *plan = {kernel, Sh::SMEM, Sh::TILE_ROWS};
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+}
+
+// the width class of a C-column row: L lanes a row and NCHUNK chunks of
+// L * VEC columns a lane; 16 or 8 lanes (at most 3 chunks) where they pad the
+// row less than 32 lanes do
+template <int VEC>
+void width_class(int C, int* L, int* nchunk) {
+  *L = 32;
+  *nchunk = chunks_for<VEC>(C);
+  int pad = *nchunk * 32 * VEC - C;
+  for (int l = 16; l >= 8; l /= 2) {
+    const int n = (C + l * VEC - 1) / (l * VEC);
+    if (n <= 3 && n * l * VEC - C < pad) {
+      *L = l;
+      *nchunk = n;
+      pad = n * l * VEC - C;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t bwd_pick(int C, BwdPlan* plan) {
+  int L = 0, n = 0;
+  width_class<Elt<T>::VEC>(C, &L, &n);
+  switch (L * 100 + n) {
+    case 3201: return bwd_plan<T, 32, 1>(plan);
+    case 3202: return bwd_plan<T, 32, 2>(plan);
+    case 3203: return bwd_plan<T, 32, 3>(plan);
+    case 3204: return bwd_plan<T, 32, 4>(plan);
+    case 3205: return bwd_plan<T, 32, 5>(plan);
+    case 3206: return bwd_plan<T, 32, 6>(plan);
+    case 1601: return bwd_plan<T, 16, 1>(plan);
+    case 1602: return bwd_plan<T, 16, 2>(plan);
+    case 1603: return bwd_plan<T, 16, 3>(plan);
+    case 801: return bwd_plan<T, 8, 1>(plan);
+    case 802: return bwd_plan<T, 8, 2>(plan);
+    case 803: return bwd_plan<T, 8, 3>(plan);
+    default: break;
+  }
+  if constexpr (Elt<T>::VEC == 4) {  // f32 rows of 769-1536 columns
+    switch (L * 100 + n) {
+      case 3208: return bwd_plan<T, 32, 8>(plan);
+      case 3210: return bwd_plan<T, 32, 10>(plan);
+      case 3212: return bwd_plan<T, 32, 12>(plan);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the register path's variant and grid: one block an SM, cut to the row tiles
+template <typename T>
+cudaError_t bwd_grid(long long R, int C, BwdPlan* plan, int* grid) {
+  cudaError_t err = bwd_pick<T>(C, plan);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (R + plan->tile_rows - 1) / plan->tile_rows;
+  *grid = static_cast<int>(sms < tiles ? sms : tiles);
+  return cudaSuccess;
+}
+
+// partial rows (of each of dgamma and dbeta) a backward at (R >= 1, C) writes
+template <typename T>
+cudaError_t bwd_partials(long long R, int C, int* nb) {
+  if (C > REG_MAX_C) {
+    *nb = static_cast<int>(bwd_blocks(R));
+    return cudaSuccess;
+  }
+  BwdPlan plan;
+  return bwd_grid<T>(R, C, &plan, nb);
+}
+
 template <typename T>
 cudaError_t ln_bwd(const void* x, const float* gamma, const void* dy, void* dx, float* part,
-                   float* out, long long R, int C, float eps, cudaStream_t stream) {
+                   long long part_floats, float* out, long long R, int C, float eps,
+                   cudaStream_t stream) {
   constexpr int VEC = Elt<T>::VEC;
-  cudaError_t err = cudaErrorInvalidValue;
+  int nb = 0;
+  cudaError_t err = cudaSuccess;
   if (C > REG_MAX_C) {
-    const dim3 grid(static_cast<unsigned>(bwd_blocks(R)));
-    ln_bwd_stream_kernel<T><<<grid, LN_THREADS, 0, stream>>>(
+    nb = static_cast<int>(bwd_blocks(R));
+    if (part_floats < 2LL * nb * C) return cudaErrorInvalidValue;
+    ln_bwd_stream_kernel<T><<<dim3(nb), LN_THREADS, 0, stream>>>(
         static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), part,
         R, C, eps);
     err = cudaGetLastError();
   } else {
-    const bool vec = C % VEC == 0 && aligned16(x) && aligned16(dy) && aligned16(dx) &&
-                     aligned16(gamma);
-    switch (chunks_for<VEC>(C)) {
-      case 1: err = bwd_launch<T, 1>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      case 2: err = bwd_launch<T, 2>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      case 3: err = bwd_launch<T, 3>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      case 4: err = bwd_launch<T, 4>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      case 5: err = bwd_launch<T, 5>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      case 6: err = bwd_launch<T, 6>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-      default:
-        if constexpr (VEC == 4) {
-          switch (chunks_for<VEC>(C)) {
-            case 8: err = bwd_launch<T, 8>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-            case 10: err = bwd_launch<T, 10>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-            case 12: err = bwd_launch<T, 12>(x, gamma, dy, dx, part, R, C, eps, vec, stream); break;
-            default: break;
-          }
-        }
-        break;
-    }
+    BwdPlan plan;
+    err = bwd_grid<T>(R, C, &plan, &nb);
+    if (err != cudaSuccess) return err;
+    if (part_floats < 2LL * nb * C) return cudaErrorInvalidValue;
+    bool vec = C % VEC == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+    void* args[] = {&x, &gamma, &dy, &dx, &part, &R, &C, &eps, &vec};
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(plan.kernel), dim3(nb),
+                           dim3(BWD_THREADS), args, plan.smem, stream);
   }
   if (err != cudaSuccess) return err;
-  const int nb = static_cast<int>(bwd_blocks(R));
-  ln_bwd_reduce_kernel<<<dim3((C + 31) / 32, 2), dim3(32, 8), 0, stream>>>(part, out, nb, C);
+  ln_bwd_reduce_kernel<<<dim3((C + RED_COLS - 1) / RED_COLS, 2), dim3(RED_COLS, RED_ROWS), 0,
+                         stream>>>(part, out, nb, C);
   return cudaGetLastError();
 }
 
@@ -507,20 +816,36 @@ int avj_ln_fwd(int dtype, const void* x, const float* gamma, const float* beta, 
   }
 }
 
-// rows of the f32 partial-sum workspace avj_ln_bwd needs for each of
-// dgamma and dbeta: it takes 2 * avj_ln_bwd_blocks(R) * C floats
-long long avj_ln_bwd_blocks(long long R) { return bwd_blocks(R); }
+// f32 workspace avj_ln_bwd needs at (dtype, R, C) on the current device:
+// 2 x (partial rows) x C floats, one partial row pair a block; a negative
+// value is minus a cudaError_t
+long long avj_ln_bwd_workspace(int dtype, long long R, int C) {
+  if (C <= 0 || R < 0) return -static_cast<long long>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  int nb = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: err = bwd_partials<float>(R, C, &nb); break;
+    case 1: err = bwd_partials<__half>(R, C, &nb); break;
+    case 2: err = bwd_partials<__nv_bfloat16>(R, C, &nb); break;
+    default: break;
+  }
+  return err == cudaSuccess ? 2LL * nb * C : -static_cast<long long>(err);
+}
 
-// K6: dx, and dgamma | dbeta as out [2, C] f32; part is the workspace above
+// K6: dx, and dgamma | dbeta as out [2, C] f32; part is the workspace above,
+// part_floats its size
 int avj_ln_bwd(int dtype, const void* x, const float* gamma, const void* dy, void* dx,
-               float* part, float* out, long long R, int C, float eps, void* stream) {
+               float* part, long long part_floats, float* out, long long R, int C, float eps,
+               void* stream) {
   if (C <= 0 || R < 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 0) return cudaMemsetAsync(out, 0, 2 * static_cast<size_t>(C) * sizeof(float), s);
   switch (dtype) {
-    case 0: return ln_bwd<float>(x, gamma, dy, dx, part, out, R, C, eps, s);
-    case 1: return ln_bwd<__half>(x, gamma, dy, dx, part, out, R, C, eps, s);
-    case 2: return ln_bwd<__nv_bfloat16>(x, gamma, dy, dx, part, out, R, C, eps, s);
+    case 0: return ln_bwd<float>(x, gamma, dy, dx, part, part_floats, out, R, C, eps, s);
+    case 1: return ln_bwd<__half>(x, gamma, dy, dx, part, part_floats, out, R, C, eps, s);
+    case 2:
+      return ln_bwd<__nv_bfloat16>(x, gamma, dy, dx, part, part_floats, out, R, C, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -76,9 +76,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.avj_attn_delta.restype = i32
     lib.avj_ln_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i32, f32, ptr]
     lib.avj_ln_fwd.restype = i32
-    lib.avj_ln_bwd_blocks.argtypes = [i64]
-    lib.avj_ln_bwd_blocks.restype = i64
-    lib.avj_ln_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, f32, ptr]
+    lib.avj_ln_bwd_workspace.argtypes = [i32, i64, i32]
+    lib.avj_ln_bwd_workspace.restype = i64
+    lib.avj_ln_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, ptr, i64, i32, f32, ptr]
     lib.avj_ln_bwd.restype = i32
     lib.avj_error_string.argtypes = [i32]
     lib.avj_error_string.restype = ctypes.c_char_p

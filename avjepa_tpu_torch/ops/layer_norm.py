@@ -128,14 +128,17 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     dy2 = _rows(dy.to(x.dtype), "dy", x.device)
     g = _param(gamma, c, "gamma", x.device)
     dx = torch.empty_like(x2)
-    lib = load_library()
-    nb = lib.avj_ln_bwd_blocks(x2.shape[0])
-    part = torch.empty((2, nb, c), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    dtype = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        code = lib.avj_ln_bwd(_DTYPE_CODES[x.dtype], x2.data_ptr(), g.data_ptr(),
-                              dy2.data_ptr(), dx.data_ptr(), part.data_ptr(), sums.data_ptr(),
-                              x2.shape[0], c, eps, torch.cuda.current_stream().cuda_stream)
+        # one f32 partial row pair (dgamma, dbeta) per block of the launch
+        floats = lib.avj_ln_bwd_workspace(dtype, x2.shape[0], c)
+        check(lib, max(-floats, 0), "ln_bwd workspace")
+        part = torch.empty(floats, dtype=torch.float32, device=x.device)
+        code = lib.avj_ln_bwd(dtype, x2.data_ptr(), g.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+                              part.data_ptr(), floats, sums.data_ptr(), x2.shape[0], c, eps,
+                              torch.cuda.current_stream().cuda_stream)
     check(lib, code, "ln_bwd")
     LAUNCHES["ln_bwd"] += 1
     return dx.reshape(x.shape), sums[0].to(gamma.dtype), sums[1].to(gamma.dtype)

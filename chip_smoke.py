@@ -36,8 +36,11 @@ exits non-zero:
      a torch.profiler window), with remat (three rounds) and without;
   8. the LayerNorm kernels K5/K6 through FastLayerNorm, forward and
      backward, against their plain versions in bf16 and f32 at [39936,
-     1024], [67584, 384] and a ragged [1003, 192]; two backward runs give
-     the same dgamma/dbeta bits; times beside the plain version,
+     1024], [37632, 1280], [67584, 384] and a ragged [1003, 192], in f16 at
+     [4099, 1280], in bf16 at a width not a multiple of 8 and one past the
+     register path; three backward runs give the same bits; their registers
+     and spills; times at the three model widths (CUDA events, and the
+     kernels' device time by torch.profiler) beside the plain version,
      F.layer_norm and the bound;
   9. the avprediction apps at av-vitl16_prediction.yaml (ViT-L AV, bf16,
      batch 24, synthetic clips) on the pretrain checkpoint of phase 5: 4
@@ -135,9 +138,10 @@ PEAK_F32_FLOPS = 67e12
 # max abs error of a LayerNorm kernel against its plain version, relative to
 # max|plain|: y and dx share every rounding point with the plain version,
 # whose f32 row sums run in another order, which can move the one rounding
-# to bf16 by an ulp (2^-8 relative, as BWD_REL_TOL) or leave f32 within a
-# few ulp; dgamma/dbeta sum up to 67,584 rows in f32 in other orders
-LN_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# to bf16 by an ulp (2^-8 relative, as BWD_REL_TOL) or f16 by an ulp (2^-10
+# relative, two allowed) or leave f32 within a few ulp; dgamma/dbeta sum up
+# to 67,584 rows in f32 in other orders
+LN_REL_TOL = {"bfloat16": 2e-2, "float16": 2e-3, "float32": 1e-5}
 LN_PARAM_REL_TOL = 1e-4
 # relative L2 error of the pooled ViT-L features, kernel vs plain attention,
 # in bf16: same rounding points, other summation orders, over 24 layers
@@ -1014,18 +1018,31 @@ def _rel_err(got, want) -> float:
     return _max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
 
 
+# K6's check shapes: the pretrain step's row counts at each model width (24 x
+# 1664 ViT-L encoder rows at 1024, 24 x 1568 ViT-H rows at 1280, 48 x 1408
+# predictor rows at 384) and a ragged [1003, 192], in bf16 and f32; ViT-H's
+# width in f16 with a ragged last tile; a width that is not a multiple of 8
+# (scalar loads) and one past the register path (the streaming variant)
+LN_CHECKS = tuple(
+    (r, c, dtype) for dtype in ("bfloat16", "float32")
+    for r, c in ((39936, 1024), (37632, 1280), (67584, 384), (1003, 192))
+) + ((4099, 1280, "float16"), (517, 1001, "bfloat16"), (300, 2000, "bfloat16"))
+# K5/K6 timing shapes (bf16): the three widths above at the step's row counts
+LN_TIMED = ((39936, 1024), (37632, 1280), (67584, 384))
+
+
 def check_ln_kernels() -> tuple[dict, dict]:
     """K5/K6 through FastLayerNorm (forward, then autograd's backward)
-    against the plain versions, bf16 and f32, at the pretrain step's row
-    counts (24 x 1664 encoder rows at width 1024; 48 x 1408 predictor rows
-    at 384) and a ragged shape; K6 run twice more must give the same bits.
-    Returns the bf16 max abs errors at [39936, 1024] and the phase's
-    launch counts, asserted."""
+    against the plain versions at LN_CHECKS; K6 run twice more must give the
+    same bits. Returns the bf16 max abs errors at [39936, 1024] and the
+    phase's launch counts, asserted."""
     import torch
 
     from avjepa_tpu_torch.models.modules import FastLayerNorm
     from avjepa_tpu_torch.ops import layer_norm as ln
 
+    print("LayerNorm kernels' resources (ptxas):")
+    print_resources("ln_")
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(shape):
@@ -1035,41 +1052,39 @@ def check_ln_kernels() -> tuple[dict, dict]:
     want_launches = {"ln_fwd": 0, "ln_bwd": 0}
     main_err = {}
     print("LayerNorm kernels vs plain versions:")
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        for r, c in ((39936, 1024), (67584, 384), (1003, 192)):
-            x = (2.0 * randn((r, c)) + 0.5).to(dtype).requires_grad_()
-            dy = randn((r, c)).to(dtype)
-            module = FastLayerNorm(c).cuda()
-            with torch.no_grad():
-                module.weight.copy_(1.0 + 0.3 * randn(c))
-                module.bias.copy_(0.3 * randn(c))
-            y = module(x)
-            y.backward(dy)
-            torch.cuda.synchronize()
-            w, b = module.weight.detach(), module.bias.detach()
-            want_y = ln.layer_norm_ref(x.detach(), w, b)
-            want = ln.layer_norm_bwd_ref(x.detach(), w, dy)
-            got = (x.grad, module.weight.grad, module.bias.grad)
-            errs = [_rel_err(y, want_y)] + [_rel_err(g, v) for g, v in zip(got, want)]
-            again = [ln.layer_norm_bwd(x.detach(), w, dy) for _ in range(2)]
-            same = all(torch.equal(p, q) for p, q in zip(*again))
-            same_sums = torch.equal(again[0][1], got[1]) and torch.equal(again[0][2], got[2])
-            want_launches["ln_fwd"] += 1
-            want_launches["ln_bwd"] += 3
-            tol = LN_REL_TOL[name]
-            ok = (max(errs[:2]) <= tol and max(errs[2:]) <= LN_PARAM_REL_TOL and same
-                  and same_sums)
-            print(f"  ln [{r}, {c}] {name}: max|err|/max|plain| y {errs[0]:.2e}, dx "
-                  f"{errs[1]:.2e} (tol {tol:g}), dgamma {errs[2]:.2e}, dbeta {errs[3]:.2e} "
-                  f"(tol {LN_PARAM_REL_TOL:g}); bwd bit-identical over 3 runs: "
-                  f"{same and same_sums} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"LayerNorm kernels disagree at [{r}, {c}] {name}")
-            if dtype == torch.bfloat16 and (r, c) == (39936, 1024):
-                main_err = {"ln_fwd": _max_err(y, want_y),
-                            "ln_bwd": max(_max_err(g, v) for g, v in zip(got, want))}
-            del x, dy, y, want, got, again
+    for r, c, name in LN_CHECKS:
+        dtype = getattr(torch, name)
+        x = (2.0 * randn((r, c)) + 0.5).to(dtype).requires_grad_()
+        dy = randn((r, c)).to(dtype)
+        module = FastLayerNorm(c).cuda()
+        with torch.no_grad():
+            module.weight.copy_(1.0 + 0.3 * randn(c))
+            module.bias.copy_(0.3 * randn(c))
+        y = module(x)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        w, b = module.weight.detach(), module.bias.detach()
+        want_y = ln.layer_norm_ref(x.detach(), w, b)
+        want = ln.layer_norm_bwd_ref(x.detach(), w, dy)
+        got = (x.grad, module.weight.grad, module.bias.grad)
+        errs = [_rel_err(y, want_y)] + [_rel_err(g, v) for g, v in zip(got, want)]
+        again = [ln.layer_norm_bwd(x.detach(), w, dy) for _ in range(2)]
+        same = all(torch.equal(p, q) for p, q in zip(*again))
+        same = same and all(torch.equal(p, q) for p, q in zip(again[0], got))
+        want_launches["ln_fwd"] += 1
+        want_launches["ln_bwd"] += 3
+        tol = LN_REL_TOL[name]
+        ok = max(errs[:2]) <= tol and max(errs[2:]) <= LN_PARAM_REL_TOL and same
+        print(f"  ln [{r}, {c}] {name}: max|err|/max|plain| y {errs[0]:.2e}, dx "
+              f"{errs[1]:.2e} (tol {tol:g}), dgamma {errs[2]:.2e}, dbeta {errs[3]:.2e} "
+              f"(tol {LN_PARAM_REL_TOL:g}); bwd bit-identical over 3 runs: "
+              f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"LayerNorm kernels disagree at [{r}, {c}] {name}")
+        if name == "bfloat16" and (r, c) == (39936, 1024):
+            main_err = {"ln_fwd": _max_err(y, want_y),
+                        "ln_bwd": max(_max_err(g, v) for g, v in zip(got, want))}
+        del x, dy, y, want, got, again
     launches = dict(ln.LAUNCHES)
     print(f"LayerNorm launches in this phase {launches} (expected {want_launches})")
     if launches != want_launches:
@@ -1077,45 +1092,83 @@ def check_ln_kernels() -> tuple[dict, dict]:
     return main_err, launches
 
 
+def _device_ms(fn, calls: int = 20) -> dict:
+    """Device time of each CUDA kernel per call of ``fn`` by torch.profiler
+    (after one warm call): {kernel name: ms per call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / (1e3 * calls) for e in prof.key_averages()
+            if e.device_type.name == "CUDA"}
+
+
 def time_ln_kernels() -> dict:
-    """bf16 K5/K6 at [39936, 1024] beside the plain versions, F.layer_norm
-    (forward; its autograd backward) and the bound: {key: (ms, plain_ms,
-    library_ms, bound_ms, bound_by)}."""
+    """bf16 K5/K6 at LN_TIMED: each wrapper's ms (CUDA events, median of
+    TIME_ROUNDS rounds) beside its kernels' device ms (torch.profiler), the
+    plain version, F.layer_norm (forward; its autograd backward, by events
+    and by device time) and the bound. Returns {key: (ms, plain_ms,
+    library_ms, bound_ms, bound_by)}, keyed "ln_fwd"/"ln_bwd" at [39936,
+    1024] and "ln_fwd RxC"/"ln_bwd RxC" at the others."""
     import torch
     import torch.nn.functional as F
 
     from avjepa_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    r, c = 39936, 1024
-    x = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
-    dy = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
-    w = 1.0 + 0.3 * torch.randn(c, generator=gen, device="cuda")
-    b = 0.3 * torch.randn(c, generator=gen, device="cuda")
-    # F.layer_norm takes the affine in the input's type
-    xr = x.clone().requires_grad_()
-    wr = w.to(x.dtype).requires_grad_()
-    br = b.to(x.dtype).requires_grad_()
-    with torch.no_grad():
-        lib_fwd = _time_ms(lambda: F.layer_norm(xr, (c,), wr, br, 1e-6), 20)
-    yr = F.layer_norm(xr, (c,), wr, br, 1e-6)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(yr, (xr, wr, br), dy, retain_graph=True), 20)
-    n = r * c
-    times = {
-        # x read, y written (bf16), gamma and beta read (f32); 7 f32 ops an element
-        "ln_fwd": (_time_ms(lambda: ln.layer_norm_fwd(x, w, b), 20),
-                   _time_ms(lambda: ln.layer_norm_ref(x, w, b), 3), lib_fwd,
-                   *_bound(7 * n, 2 * n * 2 + 2 * c * 4, PEAK_F32_FLOPS)),
-        # x and dy read, dx written (bf16), gamma read, dgamma and dbeta
-        # written (f32); 16 f32 ops an element
-        "ln_bwd": (_time_ms(lambda: ln.layer_norm_bwd(x, w, dy), 20),
-                   _time_ms(lambda: ln.layer_norm_bwd_ref(x, w, dy), 3), lib_bwd,
-                   *_bound(16 * n, 3 * n * 2 + 3 * c * 4, PEAK_F32_FLOPS)),
-    }
-    for key, (ms, plain, lib, bound, by) in times.items():
-        print(f"time {key} bf16 [{r}, {c}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"(F.layer_norm) {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"{100 * bound / ms:.1f}% of the bound")
+    times = {}
+    for r, c in LN_TIMED:
+        x = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
+        dy = torch.randn((r, c), generator=gen, device="cuda").to(torch.bfloat16)
+        w = 1.0 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        # F.layer_norm takes the affine in the input's type
+        xr = x.clone().requires_grad_()
+        wr = w.to(x.dtype).requires_grad_()
+        br = b.to(x.dtype).requires_grad_()
+        yr = F.layer_norm(xr, (c,), wr, br, 1e-6)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.layer_norm(xr, (c,), wr, br, 1e-6)
+
+        def lib_bwd():
+            torch.autograd.grad(yr, (xr, wr, br), dy, retain_graph=True)
+
+        n = r * c
+        runs = {
+            # x read, y written (bf16), gamma and beta read (f32); 7 f32 ops an element
+            "ln_fwd": (lambda: ln.layer_norm_fwd(x, w, b), lambda: ln.layer_norm_ref(x, w, b),
+                       lib_fwd, _bound(7 * n, 2 * n * 2 + 2 * c * 4, PEAK_F32_FLOPS)),
+            # x and dy read, dx written (bf16), gamma read, dgamma and dbeta
+            # written (f32); 16 f32 ops an element
+            "ln_bwd": (lambda: ln.layer_norm_bwd(x, w, dy),
+                       lambda: ln.layer_norm_bwd_ref(x, w, dy), lib_bwd,
+                       _bound(16 * n, 3 * n * 2 + 3 * c * 4, PEAK_F32_FLOPS)),
+        }
+        for name, (kernel, plain, lib, (bound, by)) in runs.items():
+            k_min, k_ms, k_max = _time_rounds(kernel, 20)
+            l_min, l_ms, l_max = _time_rounds(lib, 20)
+            plain_ms = _time_ms(plain, 3)
+            dev = _device_ms(kernel)
+            k_dev = sum(ms for key, ms in dev.items() if name in key)
+            l_dev = sum(_device_ms(lib).values())
+            split = "; ".join(f"{key.split('(')[0][:48]} {ms:.4f}" for key, ms in dev.items())
+            print(f"time {name} bf16 [{r}, {c}]: kernel {k_ms:.4f} ms (median of {TIME_ROUNDS} "
+                  f"rounds; {k_min:.4f}-{k_max:.4f}), device {k_dev:.4f} ms ({split}); plain "
+                  f"{plain_ms:.4f} ms; library (F.layer_norm) {l_ms:.4f} ms ({l_min:.4f}-"
+                  f"{l_max:.4f}), device {l_dev:.4f} ms; bound {bound:.4f} ms ({by}): "
+                  f"{100 * bound / k_ms:.1f}% of the bound by events, {100 * bound / k_dev:.1f}% "
+                  f"by device time; kernel/library device {k_dev / l_dev:.2f}")
+            key = name if (r, c) == LN_TIMED[0] else f"{name} {r}x{c}"
+            times[key] = (k_ms, plain_ms, l_ms, bound, by)
+        del x, dy, xr, wr, br, yr
+    print(card_line())
     return times
 
 

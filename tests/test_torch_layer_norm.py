@@ -1,8 +1,9 @@
 """The port's LayerNorm (K5/K6 plain versions, FastLayerNorm) held against the
 JAX package's Pallas LayerNorm.
 
-``[64, 256]`` and ``[2, 24, 128]`` reach the Pallas kernels (interpret mode on
-the CPU, as tests/test_kernels_misc.py runs them); ``[37, 192]`` takes the
+``[64, 256]``, ``[2, 24, 128]`` and the model widths ``[16, 384]`` (the
+predictor) and ``[8, 1280]`` (ViT-H) reach the Pallas kernels (interpret mode
+on the CPU, as tests/test_kernels_misc.py runs them); ``[37, 192]`` takes the
 JAX wrapper's plain jnp branch (rows not a multiple of 8, width not of 128),
 which the port's CUDA kernel covers itself. y, dx, dgamma and dbeta through
 ``jax.vjp`` against ``torch.autograd`` on the same numpy inputs: 1e-5 in f32
@@ -42,7 +43,7 @@ def _close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(64, 256), (37, 192), (2, 24, 128)])
+@pytest.mark.parametrize("shape", [(64, 256), (37, 192), (2, 24, 128), (16, 384), (8, 1280)])
 def test_layer_norm_matches_jax(shape, dtype):
     x, dy, gamma, beta = _inputs(shape, seed=sum(shape))
     jdt = jnp.dtype(dtype)
