@@ -28,8 +28,12 @@ peak device memory.
 
 A pretrain or avprediction config with ``tpu.mesh_fsdp: N`` shards the
 models over N ranks (``parallel/fsdp.py``; with ``mesh_data`` also
-above 1, FSDP2's HSDP); the classification evals ignore the mesh keys and
-stay data parallel, as the JAX evals run on ``eval_mesh``.
+above 1, FSDP2's HSDP); with ``tpu.mesh_tensor: T`` each group of T
+consecutive ranks splits every block's heads and MLP width and loads one
+batch (``parallel/tensor.py``), so the global batch is ``batch_size x
+mesh_data x mesh_fsdp``; the three axes multiply to the ranks, or the run
+raises. Extract and the classification evals ignore the mesh keys and stay
+data parallel, as the JAX evals run on ``eval_mesh``.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ dataclasses, defaults and section aliases, validated against the port's own
 the mesh knobs, ``mesh_data`` is the data axis over the process group (one
 process per GPU, ``parallel/dist.py::make_mesh``: -1 takes what is left),
 ``mesh_fsdp`` shards the models over that many ranks
-(``parallel/fsdp.py``, FSDP2), and ``mesh_tensor`` above 1 raises (not
-ported yet).
+(``parallel/fsdp.py``, FSDP2), and ``mesh_tensor`` splits each block's
+heads and MLP width over that many ranks, which load one batch
+(``parallel/tensor.py``, Megatron's layout).
 """
 
 from __future__ import annotations

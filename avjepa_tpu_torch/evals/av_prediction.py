@@ -23,7 +23,9 @@ full-frame video MSE and PSNR (fixed range 4.0: normalized pixels span about
 
 Data parallel (``parallel/dist.py``): each rank scores its shard of the
 sampler, and the MSEs are averaged over every rank's batches; under
-``tpu.mesh_fsdp`` the frozen models are sharded as the app shards them.
+``tpu.mesh_fsdp`` and ``tpu.mesh_tensor`` the frozen models are sharded as
+the app shards them, and a tensor group's ranks score one shard, of
+``batch_size x mesh_data x mesh_fsdp`` clips a step.
 """
 
 from __future__ import annotations
@@ -48,11 +50,14 @@ _VIDEO_RANGE = 4.0
 _AUDIO_RANGE_DB = 80.0
 
 
-def build_eval_loader(cfg: ExperimentConfig, layout, seed_salt: int = 101) -> BatchLoader:
+def build_eval_loader(cfg: ExperimentConfig, layout, seed_salt: int = 101,
+                      mesh: Optional[dist.Mesh] = None) -> BatchLoader:
     """Deterministic eval loader: uniform clip windows and a center crop (or
     a held-out synthetic stream), no shuffle, a seeded mask collator. The
     file branch reads ``data.val_datasets``, else the training split
-    ``data.datasets`` with a warning (metrics are then not held out)."""
+    ``data.datasets`` with a warning (metrics are then not held out). Each
+    rank of ``mesh``'s batch group (of the world without one) takes its
+    shard."""
     seed = cfg.meta.seed + seed_salt
     if cfg.data.source == "synthetic" or not (cfg.data.val_datasets or cfg.data.datasets):
         dataset = SyntheticAVDataset(layout, length=max(256, cfg.data.batch_size * 8), seed=seed)
@@ -77,8 +82,10 @@ def build_eval_loader(cfg: ExperimentConfig, layout, seed_salt: int = 101) -> Ba
     collator = make_mask_collator(cfg.data.mask_type or cfg.tpu.mask_type, cfg.mask, layout,
                                   base_seed=seed)
     collator.set_counter(-1)  # a fixed start: the same masks run to run
+    shards, index = (dist.world(), dist.rank()) if mesh is None else (mesh.batch,
+                                                                       mesh.batch_rank)
     sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=False, seed=seed,
-                             num_shards=dist.world(), shard_index=dist.rank())
+                             num_shards=shards, shard_index=index)
     return BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
                        mask_collator=collator)
 
@@ -111,7 +118,7 @@ def run(cfg: ExperimentConfig, max_batches: int = 50, require_probe: bool = True
     encoder, predictor = handles.state.target_encoder, handles.state.predictor
     v_meters = [AverageMeter() for _ in range(num_cfgs)]
     a_meters = [AverageMeter() for _ in range(num_cfgs)]
-    loader = build_eval_loader(cfg, layout)
+    loader = build_eval_loader(cfg, layout, mesh=handles.state.mesh)
     data_iter = iter(loader)
     try:
         for bi, (video, audio, _, masks) in enumerate(data_iter):
@@ -134,7 +141,8 @@ def run(cfg: ExperimentConfig, max_batches: int = 50, require_probe: bool = True
 
     # per-config means over every rank's batches (equal in number and size)
     totals = dist.reduce(torch.tensor([m.sum for m in v_meters + a_meters]
-                                      + [v_meters[0].count], dtype=torch.float64), "sum")
+                                      + [v_meters[0].count], dtype=torch.float64), "sum",
+                         handles.state.batch_group)
     *sums, num_batches = totals.tolist()
     mse_v_per = [x / max(num_batches, 1) for x in sums[:num_cfgs]]
     mse_v = float(np.mean(mse_v_per))

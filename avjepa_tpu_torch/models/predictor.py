@@ -11,7 +11,8 @@ holds the learnable mask token of its mask config, or, with
 noised by forward diffusion. Positional embeddings are added everywhere;
 attention uses the enc|pred key mask. With ``gather_idx`` the blocks, norm
 and output projection run only over the enc∪pred positions, and the result
-is scattered back to the dense raster.
+is scattered back to the dense raster. Under the tensor axis
+``predictor_proj`` is row-parallel (``parallel/tensor.py``).
 
 The diffusion fallback's random draws (a step t and unit normal noise per
 stream) are explicit arguments, made by ``diffusion_draws`` from a
@@ -33,6 +34,7 @@ from torch import nn
 from avjepa_tpu_torch.layout import TokenLayout
 from avjepa_tpu_torch.models import pos_embed as pe
 from avjepa_tpu_torch.models.modules import LN_EPS, Block, layer_norm, linear, run_blocks
+from avjepa_tpu_torch.parallel.tensor import copy_to_tensor_region, row_parallel_linear
 
 DIFFUSION_STEPS = 1000  # steps of the fallback's forward-diffusion schedule
 
@@ -83,6 +85,8 @@ class Predictor(nn.Module):
         )
         self.predictor_norm = nn.LayerNorm(dp, eps=LN_EPS)
         self.predictor_proj = nn.Linear(dp, embed_dim)
+        # the tensor group, when predictor_proj is row-parallel (parallel/tensor.py)
+        self.tensor = None
         vpe = pe.sincos_3d(dp, layout.h_grid, layout.t_grid, uniform_power=uniform_power)
         self.register_buffer("pos_embed_v", torch.from_numpy(vpe).float(), persistent=False)
         if layout.audio_enabled:
@@ -189,7 +193,14 @@ class Predictor(nn.Module):
             key_mask = torch.gather(key_mask, 1, safe) & (idx < n)
 
         x = run_blocks(self.predictor_blocks, x, key_mask, self.remat)
-        x = linear(self.predictor_proj, layer_norm(self.predictor_norm, x, self.dtype))
+        x = layer_norm(self.predictor_norm, x, self.dtype)
+        if self.tensor is None:
+            x = linear(self.predictor_proj, x)
+        else:
+            # row-parallel on this rank's slice of the (whole) features
+            x = copy_to_tensor_region(x, self.tensor)
+            x = row_parallel_linear(self.predictor_proj, x.chunk(self.tensor.size, -1)[
+                self.tensor.index], self.tensor)
         if gather_idx is not None:
             x = scatter_rows(x, idx, n)
         return x

@@ -1,6 +1,6 @@
 """Flash attention: wrappers of four hand-written CUDA kernels (forward and
-backward of two paths), their plain PyTorch versions, and the autograd
-Functions that join them.
+backward of two paths), their plain PyTorch versions, and the custom ops that
+join them.
 
 Counterpart of ``avjepa_tpu/ops/flash_attention.py``; the CUDA sources are
 ``avjepa_tpu_torch/csrc/attention_fwd.cu`` and ``attention_bwd.cu``.
@@ -12,10 +12,17 @@ Counterpart of ``avjepa_tpu/ops/flash_attention.py``; the CUDA sources are
 - ``flash_attention`` (classic path, for heads that do not pack, as with
   vit_tiny's 3): ``[B, H, N, Dh]`` streaming softmax with a running max.
 
-Both take gradients through a ``torch.autograd.Function`` that saves the
-inputs, the key bias, the output and lse; delta = rowsum(dO * O) is taken
-outside the backward kernel, as the TPU wrapper does. The key mask gets no
-gradient.
+Each forward is a ``torch.library.custom_op`` (``avjepa::attn_fwd_packed``,
+``avjepa::attn_fwd``) returning (out, lse); its registered backward is the
+backward kernel's path, fed the saved inputs, key bias, out and lse; delta =
+rowsum(dO * O) is taken outside the backward kernel, as the TPU wrapper
+does. The key mask gets no gradient. A remat'd block calls the forward and
+backward wrappers itself (``models/modules.py``).
+
+The packed wrappers take any head count of head_dim <= 128: a tensor rank's
+share of a model's heads too. The TPU kernel's lane packing
+(``packed_qkv_eligible``) is the JAX dispatch rule, which the models apply
+on the model's head count; it is not a limit of the CUDA kernels.
 
 A wrapper given a tensor on the CPU runs the plain version (``*_ref``); given
 a CUDA tensor it launches its kernel or raises. The kernels mask the ragged
@@ -30,6 +37,7 @@ kernel. In f16 the packed path's p = exp(min(s, 80)) overflows above s ~ 11
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -281,6 +289,20 @@ def _delta_kernel(lib, out: torch.Tensor, dout: torch.Tensor, num_heads: int) ->
     return delta
 
 
+def _check_packed(qkv: torch.Tensor, num_heads: int) -> int:
+    """head_dim of a packed qkv [B, N, 3 x num_heads x d]; raises unless the
+    shape splits so, d <= 128 and the tensor is on the CPU or a GPU."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    if c3 != 3 * c or c != num_heads * d or not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"qkv {tuple(qkv.shape)} does not split into {num_heads} heads "
+                         f"of head_dim <= {_MAX_HEAD_DIM}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qkv must be a CPU or CUDA tensor, got {qkv.device}")
+    return d
+
+
 def flash_attention_qkv_fwd(
     qkv: torch.Tensor,
     num_heads: int,
@@ -290,9 +312,7 @@ def flash_attention_qkv_fwd(
     """Packed attention off the fused qkv: (out [B, N, C], lse [B, H, N])."""
     b, n, c3 = qkv.shape
     c = c3 // 3
-    d = c // num_heads
-    if c3 != 3 * c or c != num_heads * d or not packed_qkv_eligible(num_heads, d):
-        raise ValueError(f"qkv {tuple(qkv.shape)} with {num_heads} heads cannot pack")
+    d = _check_packed(qkv, num_heads)
     if scale is None:
         scale = d**-0.5
     if qkv.device.type == "cpu":
@@ -351,19 +371,32 @@ def flash_attention_qkv_bwd(
     return dqkv
 
 
-class _PackedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, bias, num_heads, scale):
-        out, lse = flash_attention_qkv_fwd(qkv, num_heads, bias, scale)
-        ctx.save_for_backward(qkv, bias, out, lse)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return out
+@torch.library.custom_op("avjepa::attn_fwd_packed", mutates_args=())
+def _attn_fwd_packed_op(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_qkv_fwd(qkv, num_heads, bias, scale)
 
-    @staticmethod
-    def backward(ctx, dout):
-        qkv, bias, out, lse = ctx.saved_tensors
-        dqkv = flash_attention_qkv_bwd(qkv, out, lse, dout, ctx.num_heads, bias, ctx.scale)
-        return dqkv, None, None, None
+
+@_attn_fwd_packed_op.register_fake
+def _(qkv, bias, num_heads, scale):
+    b, n, c3 = qkv.shape
+    return (qkv.new_empty((b, n, c3 // 3)),
+            qkv.new_empty((b, num_heads, n), dtype=torch.float32))
+
+
+def _packed_setup(ctx, inputs, output):
+    qkv, bias, num_heads, scale = inputs
+    ctx.save_for_backward(qkv, bias, *output)
+    ctx.num_heads, ctx.scale = num_heads, scale
+
+
+def _packed_backward(ctx, dout, _dlse):
+    qkv, bias, out, lse = ctx.saved_tensors
+    dqkv = flash_attention_qkv_bwd(qkv, out, lse, dout, ctx.num_heads, bias, ctx.scale)
+    return dqkv, None, None, None
+
+
+_attn_fwd_packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
 
 
 def flash_attention_qkv(
@@ -372,14 +405,15 @@ def flash_attention_qkv(
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention straight off the fused qkv projection, differentiable.
+    """Attention straight off the fused qkv projection, differentiable, through
+    the ``avjepa::attn_fwd_packed`` op (its backward is K2's).
 
     qkv: [B, N, 3*C] (feature packing [q | k | v], heads contiguous within
-    each C). Returns [B, N, C]. Requires packed_qkv_eligible(num_heads,
-    C // num_heads).
+    each C), C = num_heads x head_dim, head_dim <= 128. Returns [B, N, C].
     """
+    d = _check_packed(qkv, num_heads)
     bias = _key_bias(key_mask, qkv.shape[0], qkv.shape[1])
-    return _PackedAttention.apply(qkv, bias, num_heads, scale)
+    return _attn_fwd_packed_op(qkv, bias, num_heads, d**-0.5 if scale is None else scale)[0]
 
 
 def flash_attention_fwd(
@@ -462,19 +496,36 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
-class _ClassicAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        out, lse = flash_attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.scale = scale
-        return out
+@torch.library.custom_op("avjepa::attn_fwd", mutates_args=())
+def _attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+                 scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, bias, scale)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, bias, ctx.scale)
-        return dq, dk, dv, None, None
+
+@_attn_fwd_op.register_fake
+def _(q, k, v, bias, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:-1], dtype=torch.float32)
+
+
+def _classic_setup(ctx, inputs, output):
+    q, k, v, bias, scale = inputs
+    ctx.save_for_backward(q, k, v, bias, *output)
+    ctx.scale = scale
+
+
+def _classic_backward(ctx, dout, _dlse):
+    q, k, v, bias, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, bias, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_attn_fwd_op.register_autograd(_classic_backward, setup_context=_classic_setup)
+
+
+def classic_kernel_eligible(head_dim: int, n: int) -> bool:
+    """Whether ``flash_attention`` launches the classic kernel (else the
+    plain path), as the JAX package decides."""
+    return head_dim % 8 == 0 and n >= BLOCK
 
 
 def flash_attention(
@@ -488,7 +539,7 @@ def flash_attention(
     dims not divisible by 8 and sequences shorter than 128, as the JAX
     package does."""
     d, n = q.shape[-1], q.shape[-2]
-    if d % 8 != 0 or n < BLOCK:
+    if not classic_kernel_eligible(d, n):
         return xla_attention(q, k, v, key_mask=key_mask, scale=scale)
     bias = _key_bias(key_mask, q.shape[0], n)
-    return _ClassicAttention.apply(q, k, v, bias, scale)
+    return _attn_fwd_op(q, k, v, bias, d**-0.5 if scale is None else scale)[0]

@@ -9,22 +9,27 @@ drives one GPU (torchrun's layout: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 collectives are explicit:
   - ``init_distributed``: join the process group (NCCL on CUDA, gloo when the
     CPU is asked for) and bind this rank's GPU;
-  - ``make_mesh``: check a config's mesh against the world; with ``fsdp >
-    1`` also build the ``DeviceMesh`` that ``parallel/fsdp.py`` shards the
-    models over (``tensor`` raises: not ported);
-  - ``all_reduce_grads``: the gradients of a step averaged over the ranks in
-    one all-reduce of their flattened concatenation (FSDP2's reduce-scatter
-    averages those of the sharded models);
-  - ``reduce``: a tensor summed, averaged, or its min or max over the ranks
-    (the metrics a step logs);
+  - ``make_mesh``: check a config's mesh against the world and lay the ranks
+    out on it as JAX lays out devices (row-major ``(data, fsdp, tensor)``);
+    with ``tensor > 1`` build the tensor groups (the ranks that share one
+    batch, ``parallel/tensor.py``) and the batch groups (one rank per tensor
+    index, ``data x fsdp`` ranks each); with ``fsdp > 1`` build the
+    ``DeviceMesh`` of the batch group that ``parallel/fsdp.py`` shards the
+    models over;
+  - ``all_reduce_grads``: the gradients of a step averaged over the ranks of
+    a batch group in one all-reduce of their flattened concatenation
+    (FSDP2's reduce-scatter averages those of the sharded models);
+  - ``reduce``: a tensor summed, averaged, or its min or max over the ranks,
+    or over a batch group (the metrics a step logs);
   - ``count_correct`` / ``count_valid``: an eval's top-1 counts over the
     global batch (``mesh.py:224-248``);
   - ``agree``: a flag raised on any rank (the SIGTERM agreement);
   - ``broadcast_module``: rank 0's weights to every rank;
   - ``barrier``.
 Without a process group (one process, ``app.main``), ``world()`` is 1 and
-every helper is the identity. ``REDUCTIONS`` counts the collectives each
-helper issued, by helper.
+every helper is the identity. A helper given ``group=None`` works over the
+world: without the tensor axis the batch group is the world. ``REDUCTIONS``
+counts the collectives each helper issued, by helper.
 """
 
 from __future__ import annotations
@@ -105,47 +110,95 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Group:
+    """A process group of some of the ranks: this rank is number ``index`` of
+    ``size``."""
+
+    group: object
+    size: int
+    index: int
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     data: int
     fsdp: int = 1
     tensor: int = 1
-    # the ranks as a ('data', 'fsdp') DeviceMesh (('fsdp',) when data is 1),
-    # built when fsdp > 1: FSDP2 replicates over 'data' and shards over 'fsdp'
+    # the batch group as a ('data', 'fsdp') DeviceMesh (('fsdp',) when data is
+    # 1), built when fsdp > 1: FSDP2 replicates over 'data' and shards over
+    # 'fsdp'
     device_mesh: Optional[DeviceMesh] = dataclasses.field(default=None, compare=False, repr=False)
+    # with tensor > 1: this rank's batch group (the data x fsdp ranks at its
+    # tensor index; None is the world) and tensor group
+    batch_group: Optional[Group] = dataclasses.field(default=None, compare=False, repr=False)
+    tensor_group: Optional[Group] = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def batch(self) -> int:
+        """The ranks that load distinct samples: the global batch is the
+        local batch times this."""
+        return self.data * self.fsdp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's shard of the sampler, of ``batch``."""
+        return rank() // self.tensor
+
+
+def size(group: Optional[Group] = None) -> int:
+    """The ranks of ``group``; the world's for None."""
+    return group.size if group is not None else world()
+
+
+def _subgroups(ranks: list[list[int]]) -> Group:
+    """A process group for each list of ranks (every rank creates each, in
+    the same order); this rank's."""
+    own, _ = dist.new_subgroups_by_enumeration(ranks)
+    mine = next(r for r in ranks if rank() in r)
+    return Group(own, len(mine), mine.index(rank()))
 
 
 def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
               device: str | torch.device = "cpu") -> Mesh:
     """The config's ``tpu.mesh_*`` axes checked against the world: ``data ==
     -1`` takes what is left, and the axes must multiply to the world size
-    (``mesh.py:72-86``). With ``fsdp > 1`` the mesh carries a ``DeviceMesh``
-    of ``device``'s type over the ranks, row-major as JAX lays its devices
-    out: rank ``r`` is data replica ``r // fsdp``, shard ``r % fsdp``. The
-    tensor axis is not ported."""
-    if tensor > 1:
-        raise NotImplementedError(
-            f"mesh_tensor={tensor}: avjepa_tpu_torch has the data and fsdp axes only; the "
-            "tensor axis is queued in ROADMAP.md")
+    (``mesh.py:72-86``). The ranks are laid out row-major as JAX lays its
+    devices out: rank ``r`` is tensor index ``r % tensor``, fsdp index ``(r
+    // tensor) % fsdp``, data index ``r // (fsdp * tensor)``. With ``tensor >
+    1`` the mesh carries this rank's tensor group (its ``tensor`` ranks
+    share one batch) and batch group (the ``data x fsdp`` ranks at its
+    tensor index); with ``fsdp > 1`` a ``DeviceMesh`` of ``device``'s type
+    over its batch group, from a 3-D ``('data', 'fsdp', 'tensor')`` mesh."""
     n = world()
     if data == -1:
-        data = n // fsdp
-    if data * fsdp * tensor != n:
+        data = n // (fsdp * tensor)
+    if data < 1 or data * fsdp * tensor != n:
         raise ValueError(f"mesh {data}x{fsdp}x{tensor} != {n} processes")
-    device_mesh = None
-    if fsdp > 1:
+    device_mesh = batch_group = tensor_group = None
+    kind = torch.device(device).type
+    if fsdp > 1 and tensor > 1:
+        full = init_device_mesh(kind, (data, fsdp, tensor), mesh_dim_names=("data", "fsdp",
+                                                                            "tensor"))
+        device_mesh = full["data", "fsdp"] if data > 1 else full["fsdp"]
+    elif fsdp > 1:
         shape, names = ((data, fsdp), ("data", "fsdp")) if data > 1 else ((fsdp,), ("fsdp",))
-        device_mesh = init_device_mesh(torch.device(device).type, shape, mesh_dim_names=names)
-    return Mesh(data, fsdp, tensor, device_mesh)
+        device_mesh = init_device_mesh(kind, shape, mesh_dim_names=names)
+    if tensor > 1:
+        tensor_group = _subgroups([list(range(b * tensor, (b + 1) * tensor))
+                                   for b in range(n // tensor)])
+        batch_group = _subgroups([list(range(t, n, tensor)) for t in range(tensor)])
+    return Mesh(data, fsdp, tensor, device_mesh, batch_group, tensor_group)
 
 
-def all_reduce_grads(modules: Iterable[nn.Module]) -> None:
-    """Average the gradients of ``modules`` over the ranks: one all-reduce
-    of their concatenation, after the backward pass and before any norm or
-    clip reads them. Each ``p.grad`` becomes a view of the reduced buffer.
-    Every rank must hold gradients for the same parameters (the same graph),
-    all of one dtype. FSDP2's sharded parameters (DTensors) are left out:
-    its reduce-scatter in the backward pass averaged them already."""
+def all_reduce_grads(modules: Iterable[nn.Module], group: Optional[Group] = None) -> None:
+    """Average the gradients of ``modules`` over the ranks of ``group`` (a
+    batch group; None: the world): one all-reduce of their concatenation,
+    after the backward pass and before any norm or clip reads them. Each
+    ``p.grad`` becomes a view of the reduced buffer. Every rank must hold
+    gradients for the same parameters (the same graph), all of one dtype.
+    FSDP2's sharded parameters (DTensors) are left out: its reduce-scatter
+    in the backward pass averaged them already."""
     if not active():
         return
     params = [p for m in modules for p in m.parameters()
@@ -156,26 +209,27 @@ def all_reduce_grads(modules: Iterable[nn.Module]) -> None:
         dtypes = sorted({str(p.grad.dtype) for p in params})
         raise ValueError(f"gradients of several dtypes: {dtypes}")
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=None if group is None else group.group)
     REDUCTIONS["grads"] += 1
-    if world() > 1:
-        flat.div_(world())
+    if size(group) > 1:
+        flat.div_(size(group))
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad = g.view_as(p)
 
 
-def reduce(t: torch.Tensor, op: str = "mean") -> torch.Tensor:
+def reduce(t: torch.Tensor, op: str = "mean", group: Optional[Group] = None) -> torch.Tensor:
     """``t`` summed (``sum``), averaged (``mean``), or its elementwise
-    ``min`` or ``max`` over the ranks, as a new tensor on ``t``'s device;
-    ``t`` itself without a process group. A host tensor travels over NCCL
-    through the current GPU."""
+    ``min`` or ``max`` over the ranks of ``group`` (a batch group; None: the
+    world), as a new tensor on ``t``'s device; ``t`` itself without a
+    process group. A host tensor travels over NCCL through the current
+    GPU."""
     if not active():
         return t
     out = t.detach().to(_scalar_device() if t.device.type == "cpu" else t.device, copy=True)
-    dist.all_reduce(out, _OPS[op])
+    dist.all_reduce(out, _OPS[op], group=None if group is None else group.group)
     REDUCTIONS[op] += 1
-    if op == "mean" and world() > 1:
-        out = out / world()
+    if op == "mean" and size(group) > 1:
+        out = out / size(group)
     return out.to(t.device)
 
 

@@ -33,6 +33,14 @@ reduce-scatter in f32, as they reach the data axis's all-reduce. The
 reduce-scatter averages the gradients over every rank (HSDP: over 'fsdp',
 then over 'data'); ``dist.all_reduce_grads`` leaves the DTensors alone.
 
+Under the tensor axis (``parallel/tensor.py``) the models hold their
+ranks' pieces of the Megatron layers before FSDP2 wraps them, and FSDP2
+shards those pieces over the batch group's fsdp dimension: fsdp stacked on
+the tensor dimension as JAX's ``("tensor", "fsdp")`` for the column layers
+(dimension 0 is the cut one), on the output dimension for the row layers
+(JAX stacks it on their cut input dimension; layout, not numerics). The
+helpers below sum the tensor group too where a parameter is cut.
+
 The helpers here take sharded (DTensor) and plain tensors alike, and are the
 identity's equivalent without sharding:
   - ``leaf_norms`` / ``leaf_abs_means``: per-tensor L2 norms and mean |x| of
@@ -57,7 +65,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
-from avjepa_tpu_torch.parallel import dist
+from avjepa_tpu_torch.parallel import dist, tensor
 
 # the ModuleLists of transformer blocks: the encoder's and the predictor's
 BLOCK_LISTS = ("blocks", "predictor_blocks")
@@ -98,38 +106,52 @@ def _shard_group(t: DTensor):
     return t.device_mesh.get_group(dims[0])
 
 
-def _sum_shards(values: torch.Tensor, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def _sum_shards(values: torch.Tensor, tensors: Sequence[torch.Tensor],
+                splits: Sequence | None = None) -> torch.Tensor:
     """``values[..., i]``, a sum over the local shard of ``tensors[i]``,
-    summed over the shard group where that tensor is sharded: one all-reduce
-    of the sharded columns."""
+    summed over the shard group where that tensor is sharded (one
+    all-reduce of the sharded columns), then over the tensor group where
+    ``splits[i]`` (``parallel/tensor.py``) says it is cut (one more): a
+    replicated column is counted once."""
     cols = [i for i, t in enumerate(tensors) if is_sharded(t)]
-    if not cols:
-        return values
-    idx = torch.tensor(cols, device=values.device)
-    part = values.index_select(-1, idx).contiguous()
-    torch_dist.all_reduce(part, group=_shard_group(tensors[cols[0]]))
-    dist.REDUCTIONS["shards"] += 1
-    return values.index_copy(-1, idx, part)
+    if cols:
+        idx = torch.tensor(cols, device=values.device)
+        part = values.index_select(-1, idx).contiguous()
+        torch_dist.all_reduce(part, group=_shard_group(tensors[cols[0]]))
+        dist.REDUCTIONS["shards"] += 1
+        values = values.index_copy(-1, idx, part)
+    cols = [i for i, s in enumerate(splits or ()) if s is not None]
+    if cols:
+        idx = torch.tensor(cols, device=values.device)
+        part = values.index_select(-1, idx).contiguous()
+        torch_dist.all_reduce(part, group=splits[cols[0]].group.group)
+        dist.REDUCTIONS["tensor_shards"] += 1
+        values = values.index_copy(-1, idx, part)
+    return values
 
 
-def leaf_norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def leaf_norms(tensors: Sequence[torch.Tensor], splits: Sequence | None = None) -> torch.Tensor:
     """The L2 norm of each full tensor, f32 ``[len(tensors)]``: the local
-    shards' squared norms summed over the shard group, then the roots."""
+    shards' squared norms summed over the shard group and, for a tensor cut
+    by the tensor axis (``splits[i]`` not None), over the tensor group, then
+    the roots."""
     if not tensors:
         return torch.zeros(0)
     norms = torch.stack(torch._foreach_norm([local(t) for t in tensors])).float()
-    if not any(is_sharded(t) for t in tensors):
+    if not any(is_sharded(t) for t in tensors) and not any(s is not None for s in splits or ()):
         return norms
-    return _sum_shards(norms.square(), tensors).sqrt()
+    return _sum_shards(norms.square(), tensors, splits).sqrt()
 
 
-def leaf_abs_means(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def leaf_abs_means(tensors: Sequence[torch.Tensor], splits: Sequence | None = None
+                   ) -> torch.Tensor:
     """The mean |x| of each full tensor, f32 ``[len(tensors)]``: the local
-    shards' sums of |x| and element counts summed over the shard group."""
+    shards' sums of |x| and element counts summed over the shard group (and
+    the tensor group, as ``leaf_norms``)."""
     locs = [local(t) for t in tensors]
     sums = torch.stack(torch._foreach_norm(locs, 1)).float()
     counts = torch.tensor([float(t.numel()) for t in locs], device=sums.device)
-    sums, counts = _sum_shards(torch.stack([sums, counts]), tensors).unbind()
+    sums, counts = _sum_shards(torch.stack([sums, counts]), tensors, splits).unbind()
     return sums / counts
 
 
@@ -149,10 +171,14 @@ def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                              like.placements, src_data_rank=None)
 
 
-def _gather_on_main(t: torch.Tensor):
-    """``full_tensor(t)`` on rank 0; on the other ranks only their part in
-    gathering a sharded ``t``, and None: a copy of the whole state on the
+def _gather_on_main(t: torch.Tensor, split=None):
+    """``full_tensor(t)`` on rank 0, joined over the tensor group where
+    ``split`` (``parallel/tensor.py``) cuts it; on the other ranks only
+    their part in the gathers, and None: a copy of the whole state on the
     host of every rank is what writing a checkpoint must not cost."""
+    if split is not None:
+        whole = tensor.gather(t.full_tensor() if is_sharded(t) else t.detach(), split)
+        return whole.cpu() if dist.is_main() else None
     if dist.is_main():
         return full_tensor(t)
     if is_sharded(t):
@@ -160,42 +186,62 @@ def _gather_on_main(t: torch.Tensor):
     return None
 
 
+def _cut(full: torch.Tensor, like: torch.Tensor, split=None) -> torch.Tensor:
+    """A full tensor placed as ``like`` is: this rank's tensor piece, then
+    its shard."""
+    return shard_like(full if split is None else split.piece(full), like)
+
+
 def full_state_dict(module: nn.Module) -> dict[str, torch.Tensor]:
-    """``module.state_dict()`` with every tensor whole, on the host of rank
-    0; every rank must call it (the gathers), the others get an empty
-    dict."""
-    out = {k: _gather_on_main(v) for k, v in module.state_dict().items()}
+    """``module.state_dict()`` with every tensor whole (gathered over the
+    shard group and joined over the tensor group: the fused qkv's heads back
+    in ``[3, H, d]`` order), on the host of rank 0; every rank must call it
+    (the gathers), the others get an empty dict."""
+    splits = tensor.splits(module)
+    out = {k: _gather_on_main(v, splits.get(k)) for k, v in module.state_dict().items()}
     return out if dist.is_main() else {}
 
 
 @torch.no_grad()
 def load_full_state_dict(module: nn.Module, state: dict) -> None:
     """``module.load_state_dict(state, strict=True)`` for a full ``state``
-    that every rank holds: each sharded entry is cut to this rank's shard
-    first."""
-    own = module.state_dict()
-    module.load_state_dict({k: shard_like(v, own[k]) if k in own else v
+    that every rank holds: each entry is cut to this rank's tensor piece and
+    shard first."""
+    own, splits = module.state_dict(), tensor.splits(module)
+    module.load_state_dict({k: _cut(v, own[k], splits.get(k)) if k in own else v
                             for k, v in state.items()}, strict=True)
 
 
-def full_optimizer_state_dict(optimizer: torch.optim.Optimizer) -> dict:
+def _opt_splits(optimizer: torch.optim.Optimizer, modules) -> list:
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return tensor.param_splits(params, modules or ())
+
+
+def full_optimizer_state_dict(optimizer: torch.optim.Optimizer,
+                              modules: Sequence[nn.Module] = ()) -> dict:
     """``optimizer.state_dict()`` with every state tensor whole, on the
     host of rank 0, as ``full_state_dict``; the other ranks get an empty
-    dict."""
+    dict. ``modules``: the models the optimizer steps, whose tensor-axis
+    splits the moments share."""
     own = optimizer.state_dict()
-    state = {i: {k: _gather_on_main(v) for k, v in s.items()} for i, s in own["state"].items()}
+    splits = _opt_splits(optimizer, modules)
+    state = {i: {k: _gather_on_main(v, splits[int(i)] if v.dim() else None)
+                 for k, v in s.items()} for i, s in own["state"].items()}
     return {"state": state, "param_groups": own["param_groups"]} if dist.is_main() else {}
 
 
-def load_full_optimizer_state_dict(optimizer: torch.optim.Optimizer, state: dict) -> None:
+def load_full_optimizer_state_dict(optimizer: torch.optim.Optimizer, state: dict,
+                                   modules: Sequence[nn.Module] = ()) -> None:
     """``optimizer.load_state_dict(state)`` for a whole ``state`` that every
     rank holds (``full_optimizer_state_dict``'s, or a file written without
     sharding): each state tensor of a sharded parameter is cut to this
-    rank's shard first."""
+    rank's piece and shard first."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     if [len(g["params"]) for g in state["param_groups"]] != [
             len(g["params"]) for g in optimizer.param_groups]:
         raise ValueError("the optimizer state's parameter groups do not match the optimizer's")
-    own = {j: {k: shard_like(v, params[int(j)]) if v.dim() else v for k, v in s.items()}
+    splits = _opt_splits(optimizer, modules)
+    own = {j: {k: _cut(v, params[int(j)], splits[int(j)]) if v.dim() else v
+               for k, v in s.items()}
            for j, s in state["state"].items()}
     optimizer.load_state_dict({"state": own, "param_groups": state["param_groups"]})

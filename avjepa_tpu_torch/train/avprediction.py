@@ -29,8 +29,11 @@ global means, each rank writes ``<tag>_probe_r{rank}.csv``, and rank 0 alone
 writes the probe checkpoint and the example's files. Under ``tpu.mesh_fsdp``
 the frozen target encoder and predictor are sharded
 (``parallel/fsdp.py``, as ``avjepa_tpu/train/avprediction.py:123-140``
-shards them) and the JEPA checkpoint is loaded into the shards; the probe
-stays replicated.
+shards them) and the JEPA checkpoint is loaded into the shards; under
+``tpu.mesh_tensor`` they hold their ranks' pieces of the Megatron layers
+(``parallel/tensor.py``), a tensor group's ranks load one batch, and the
+reductions run over the batch group. The probe stays replicated. The global
+batch is ``batch_size x mesh_data x mesh_fsdp``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ class ProbeState:
     probe: AttentionProbe
     optimizer: torch.optim.AdamW
     step: int = 0
+    # the ranks over which a step's batch is spread (None: the world)
+    batch_group: Optional[dist.Group] = None
 
 
 def probe_path(cfg: ExperimentConfig) -> str:
@@ -83,7 +88,8 @@ def setup_probe(cfg: ExperimentConfig, device: torch.device):
         start_lr=opt.start_lr, ref_lr=opt.lr, final_lr=opt.final_lr, ref_wd=opt.weight_decay,
         final_wd=opt.final_weight_decay,
     )
-    return handles, ProbeState(probe, make_optimizer([probe])), sched
+    return handles, ProbeState(probe, make_optimizer([probe]),
+                               batch_group=handles.state.batch_group), sched
 
 
 def restore_jepa_weights(handles, cfg: ExperimentConfig, logger, require: bool = False) -> bool:
@@ -137,11 +143,12 @@ def probe_step(state: ProbeState, sched: ScheduleConfig, encoder, predictor, vid
     loss_v, loss_a = reconstruction_mse(state.probe, full, video, audio)
     loss = loss_v + loss_a
     loss.backward()
-    dist.all_reduce_grads([state.probe])
+    dist.all_reduce_grads([state.probe], state.batch_group)
     set_lr_wd(state.optimizer, lr, wd)
     state.optimizer.step()
     state.step += 1
-    values = dist.reduce(torch.stack([loss, loss_v, loss_a]).detach(), "mean").tolist()
+    values = dist.reduce(torch.stack([loss, loss_v, loss_a]).detach(), "mean",
+                         state.batch_group).tolist()
     return {"loss": values[0], "loss_video": values[1], "loss_audio": values[2], "lr": lr}
 
 

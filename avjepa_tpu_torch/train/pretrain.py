@@ -26,7 +26,11 @@ the same step on every rank, so all ranks checkpoint and stop together.
 With ``tpu.mesh_fsdp > 1`` the three models are sharded
 (``parallel/fsdp.py``): every rank takes part in gathering the state that
 rank 0 writes, and a resume re-shards the whole state every rank reads, so
-a checkpoint crosses between fsdp, data and one process.
+a checkpoint crosses between fsdp, data and one process. With
+``tpu.mesh_tensor > 1`` the ranks of a tensor group (``parallel/tensor.py``)
+load one batch and hold pieces of each block's Megatron layers: the global
+batch is ``batch_size x mesh_data x mesh_fsdp``, and the checkpoint holds
+whole tensors as before.
 """
 
 from __future__ import annotations
@@ -170,7 +174,7 @@ def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
         dist.broadcast_module(module.to(device))
     state = init_state(encoder.to(device), predictor.to(device),
                        betas=tuple(cfg.optimization.betas), eps=cfg.optimization.eps,
-                       mesh=mesh.device_mesh)
+                       mesh=mesh)
     opt = cfg.optimization
     sched = ScheduleConfig(
         ipe=opt.ipe, num_epochs=opt.epochs, ipe_scale=opt.ipe_scale, warmup_epochs=opt.warmup,
@@ -186,10 +190,11 @@ def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
     weights = None
     if cfg.data.datasets_weights is not None and hasattr(dataset, "sample_weights"):
         weights = dataset.sample_weights(cfg.data.datasets_weights)
-    # data.batch_size is per GPU: each rank loads its shard's local batch
+    # data.batch_size is per rank of a batch group: each loads its shard's
+    # local batch, and a tensor group's ranks the same one
     sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=True,
-                             seed=cfg.meta.seed, num_shards=dist.world(),
-                             shard_index=dist.rank(), weights=weights)
+                             seed=cfg.meta.seed, num_shards=mesh.batch,
+                             shard_index=mesh.batch_rank, weights=weights)
     loader = BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
                          mask_collator=collator)
     return TrainHandles(cfg, device, state, sched, step_cfg, loader, collator)
@@ -315,7 +320,7 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
             if (epoch % cfg.logging.checkpoint_freq == 0 or epoch == cfg.optimization.epochs - 1
                     or stop or preempt_now):
                 meta = dict(epoch=epoch + 1, loss=loss_meter.avg, batch_size=cfg.data.batch_size,
-                            lr=float(metrics["lr"]), world_size=dist.world())
+                            lr=float(metrics["lr"]), world_size=state.mesh.batch)
                 # every rank gathers the sharded state; rank 0 writes
                 save_train_state(latest, state, **meta)
                 if cfg.logging.save_every_freq > 0 and epoch % cfg.logging.save_every_freq == 0:

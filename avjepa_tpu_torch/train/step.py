@@ -26,6 +26,14 @@ gradient is averaged twice. The per-parameter
 gradient norms (for the global norms, the clip and ``grad_stats``) and the
 moments' |x| sums come from the local shards and one all-reduce each over
 the shard group; the clip and the EMA scale shard by shard.
+
+Under the tensor axis (``parallel/tensor.py``) the ranks of a tensor group
+run one batch and hold pieces of the Megatron layers: the batch group (one
+rank per tensor index, ``state.batch_group``) takes the place of the world
+in the loss's scale, the target count and every reduction above, and the
+norms and moments' statistics of a cut parameter also sum over the tensor
+group, so that the clip, ``grad_stats``, AdamW and the EMA see the global
+tensors' statistics.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import Optional
 import torch
 
 from avjepa_tpu_torch.models.predictor import scatter_rows
-from avjepa_tpu_torch.parallel import dist, fsdp
+from avjepa_tpu_torch.parallel import dist, fsdp, tensor
 from avjepa_tpu_torch.train.optim import (
     ScheduleConfig,
     clip_,
@@ -70,16 +78,16 @@ def feature_layer_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def jepa_loss(z: torch.Tensor, h: torch.Tensor, pred_mask: torch.Tensor,
-              loss_exp: float, count: torch.Tensor) -> torch.Tensor:
+              loss_exp: float, count: torch.Tensor, shards: int = 1) -> torch.Tensor:
     """Masked ``mean(|z-h|^loss_exp)/loss_exp`` over target positions
     (reference: app/avjepa/train.py:490-495): the local masked sum over
-    ``count`` target tokens of the global batch, times the world size (1
-    without a process group), so that the mean over the ranks is the global
-    masked mean."""
+    ``count`` target tokens of the global batch, times ``shards``, the ranks
+    that load distinct samples (the batch group's size), so that the mean
+    over them is the global masked mean."""
     diff = (z.float() - h.float()).abs() ** loss_exp
     total = (diff * pred_mask[..., None].to(diff.dtype)).sum()
     denom = (count.to(diff.dtype) * diff.shape[-1]).clamp(min=1.0)
-    return total / denom * dist.world() / loss_exp
+    return total / denom * shards / loss_exp
 
 
 def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_masks,
@@ -135,11 +143,13 @@ def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_ma
               for i in range(num_cfgs)]
 
     # target tokens of each mask config over the global batch
-    counts = dist.reduce(pred_masks.flatten(1).sum(1), "sum")
+    group = state.batch_group
+    counts = dist.reduce(pred_masks.flatten(1).sum(1), "sum", group)
     loss_jepa = 0.0
     pstd = 0.0
     for i, z in enumerate(zs):
-        loss_jepa = loss_jepa + jepa_loss(z, h, pred_masks[i], cfg.loss_exp, counts[i])
+        loss_jepa = loss_jepa + jepa_loss(z, h, pred_masks[i], cfg.loss_exp, counts[i],
+                                          dist.size(group))
         # predictor std across target tokens (reference reg_fn, train.py:497-498)
         zv = masked_var(z.float(), pred_masks[i][..., None], dim=1)
         pstd = pstd + torch.sqrt(zv + 1e-4)
@@ -150,6 +160,12 @@ def loss_fn(state: TrainState, cfg: StepConfig, video, audio, enc_masks, pred_ma
 
 def _grads(module: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
     return [(n, p.grad) for n, p in module.named_parameters() if p.grad is not None]
+
+
+def _splits(module: torch.nn.Module, named) -> list:
+    """The tensor-axis split of each named tensor of ``module``."""
+    own = tensor.splits(module)
+    return [own.get(n) for n, _ in named]
 
 
 def grad_stats(named_grads, norms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
@@ -177,9 +193,10 @@ def grad_stats(named_grads, norms: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def _abs_means(optimizer: torch.optim.Optimizer, module: torch.nn.Module):
     """The mean over the module's params of mean |moment|, for AdamW's two
     moments (reference adamw_logger, src/utils/logging.py:108-118)."""
-    params = [p for p in module.parameters() if p in optimizer.state]
+    named = [(n, p) for n, p in module.named_parameters() if p in optimizer.state]
+    params = [p for _, p in named]
     means = fsdp.leaf_abs_means([optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq")
-                                 for p in params])
+                                 for p in params], _splits(module, named) * 2)
     return [m.mean() for m in means.split(len(params))]
 
 
@@ -197,12 +214,13 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
                                         enc_idx, union_idx, draws)
     loss.backward()
-    dist.all_reduce_grads([state.encoder, state.predictor])
+    dist.all_reduce_grads([state.encoder, state.predictor], state.batch_group)
 
     # per-model global norms from the per-parameter ones; the clip only
     # after warmup (reference: train.py:518-520)
     enc_g, pred_g = _grads(state.encoder), _grads(state.predictor)
-    enc_n, pred_n = fsdp.leaf_norms([g for _, g in enc_g + pred_g]).split(
+    splits = _splits(state.encoder, enc_g) + _splits(state.predictor, pred_g)
+    enc_n, pred_n = fsdp.leaf_norms([g for _, g in enc_g + pred_g], splits).split(
         [len(enc_g), len(pred_g)])
     enc_norm, pred_norm = torch.linalg.vector_norm(enc_n), torch.linalg.vector_norm(pred_n)
     if cfg.clip_grad is not None and step // cfg.ipe > cfg.warmup_epochs:
@@ -237,9 +255,10 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     # already agree on every rank
     means = [k for k in ("loss", "loss_jepa", "loss_reg", "input_var") if k in scalars]
     scalars.update(zip(means, dist.reduce(torch.stack([scalars[k].float() for k in means]),
-                                          "mean").unbind()))
+                                          "mean", state.batch_group).unbind()))
     if "input_var_min" in scalars:
-        scalars["input_var_min"] = dist.reduce(scalars["input_var_min"].float(), "min")
+        scalars["input_var_min"] = dist.reduce(scalars["input_var_min"].float(), "min",
+                                               state.batch_group)
     values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
                           for v in scalars.values()]).tolist()  # one device sync
     metrics = dict(zip(scalars, values))

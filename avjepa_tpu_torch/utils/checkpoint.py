@@ -13,8 +13,9 @@ and adds no mapping code:
   reference writes it (app/avjepa/train.py:332-350): ``encoder``,
   ``predictor``, ``target_encoder``, ``opt``, ``epoch``, ``loss``,
   ``batch_size``, ``world_size``, ``lr``, plus ``step``; whole tensors on
-  the host whether the models are sharded (the fsdp axis) or not, so a file
-  crosses between fsdp, data and one process;
+  the host whether the models are sharded (the fsdp and tensor axes, the
+  fused qkv's heads back in ``[3, H, d]`` order) or not, so a file crosses
+  between tensor, fsdp, data and one process;
 - ``load_jepa_weights``: the frozen ``target_encoder`` and ``predictor`` of
   such a file, for the avprediction app and the av_prediction eval, into
   sharded modules or not;
@@ -99,14 +100,14 @@ def load_encoder_checkpoint(path: str, prefer: str = "target_encoder") -> dict:
 def save_train_state(path: str, state, epoch: int, loss: float, batch_size: int,
                      lr: float, world_size: int = 1) -> None:
     """Write ``state`` (a ``train.state.TrainState``) to ``path``, atomically.
-    ``batch_size`` is per rank and ``world_size`` the number of ranks, as the
-    reference writes them. Every rank must call it (the sharded tensors are
+    ``batch_size`` is per rank and ``world_size`` the number of ranks that
+    load distinct samples, as the reference writes them. Every rank must call it (the sharded tensors are
     gathered); rank 0 alone copies the state to its host and writes."""
     out = {
         "encoder": fsdp.full_state_dict(state.encoder),
         "predictor": fsdp.full_state_dict(state.predictor),
         "target_encoder": fsdp.full_state_dict(state.target_encoder),
-        "opt": fsdp.full_optimizer_state_dict(state.optimizer),
+        "opt": fsdp.full_optimizer_state_dict(state.optimizer, [state.encoder, state.predictor]),
         "scaler": None,
         "epoch": epoch,
         "loss": loss,
@@ -135,7 +136,8 @@ def load_train_state(path: str, state) -> None:
                         ("target_encoder", state.target_encoder)):
         fsdp.load_full_state_dict(module, _module_state(ckpt, key, path))
     if ckpt.get("opt") is not None:
-        fsdp.load_full_optimizer_state_dict(state.optimizer, ckpt["opt"])
+        fsdp.load_full_optimizer_state_dict(state.optimizer, ckpt["opt"],
+                                            [state.encoder, state.predictor])
     state.step = int(ckpt.get("step", 0))
 
 

@@ -6,14 +6,17 @@
 Run from the root of a checkout on a machine with one CUDA GPU (Hopper, for
 the sm_90a kernels). Phases, each printed as it runs; any failure raises and
 exits non-zero:
-  1. toolchain and card (torch, CUDA, nvcc, triton, nvidia-smi);
+  1. the host's media libraries (libavformat, libavcodec) and whether
+     tensorstore and orbax import (in subprocesses), then the toolchain and
+     card (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build the CUDA kernels from avjepa_tpu_torch/csrc, one nvcc per source,
      all started together;
   3. each kernel against its plain PyTorch version on the card: the forward
      kernels in bf16, f16 and f32 at the serving shapes (head_dim 24, 64 and
-     80, ragged N, an empty batch row), with their registers and spills from
-     the build log; the backward kernels in bf16 and f32 at the training
-     slice's shapes and at head_dim 24, 64, 80 and 128, N = 4608, with the
+     80, ragged N, an empty batch row, N = 4608 at 80, a tensor rank's 8
+     heads of 24, 64 and 80), with their registers and spills from the build
+     log; the backward kernels in bf16 and f32 at the training slice's
+     shapes and at head_dim 24, 64, 80 and 128, N = 4608, 8 heads, with the
      step's prefix masks, sentinel tails, an empty batch row, ragged N and
      saturated logits, and three runs of each giving the same bits; then
      each kernel's time (median of 5 rounds) beside its plain version's, one
@@ -33,7 +36,9 @@ exits non-zero:
   6. one ViT-L step at batch 4 through the kernels against the same step
      through the plain attention (loss and grad norms);
   7. the ViT-L step on a resident batch of 24 (CUDA events, peak memory,
-     a torch.profiler window), with remat (three rounds) and without;
+     a torch.profiler window), with remat (three rounds) and without: one
+     K1 launch a layer in both, and the first step's loss and grad norms
+     equal to the bit;
   8. the LayerNorm kernels K5/K6 through FastLayerNorm, forward and
      backward, against their plain versions in bf16 and f32 at [39936,
      1024], [37632, 1280], [67584, 384] and a ragged [1003, 192], in f16 at
@@ -80,8 +85,14 @@ exits non-zero:
      batch: losses and grad norms against each other and (a), each rank's
      slice of the weights to the bit, each rank's peak memory.
      ``tools/torch_fsdp_cards.py`` runs the same config over NCCL on four
-     cards (not part of this script's run).
-Every run of phases 4-5, 9, 11, 12 and 13 is driven with the kernels' launch
+     cards (not part of this script's run);
+ 14. ViT-H under tpu.mesh_tensor: 2 (each block's heads and MLP width cut
+     over two gloo ranks on the one card, which run one batch of 4): two
+     steps against the unsharded step in this process on the same rows of
+     (a)'s batch (losses, grad norms, each rank's pieces of checked
+     weights), the packed kernels on 8 local heads, one K1 launch a layer,
+     the tensor all-reduces a step, each rank's peak memory and step ms.
+Every run of phases 4-5, 9, 11, 12, 13 and 14 is driven with the kernels' launch
 counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
@@ -158,6 +169,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def host_facts() -> None:
+    """Facts later slices plan on, printed before anything else runs, failing
+    on none: whether libavformat/libavcodec are on this host (the media
+    decoder links them) and their major versions, and whether tensorstore
+    and orbax import here (in a subprocess each, so that neither enters this
+    process)."""
+    import ctypes.util
+
+    listing = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    for lib in ("avformat", "avcodec", "avutil", "swscale"):
+        found = ctypes.util.find_library(lib)
+        versions = sorted(set(re.findall(rf"lib{lib}\.so\.(\d+)", listing)))
+        print(f"host: lib{lib}: find_library {found or 'not found'}; ldconfig majors "
+              f"{versions or 'none'}")
+    for mod in ("tensorstore", "orbax.checkpoint"):
+        res = subprocess.run([sys.executable, "-c", f"import {mod} as m; "
+                              "print(getattr(m, '__version__', 'no __version__'))"],
+                             capture_output=True, text=True)
+        said = (res.stdout.strip() if res.returncode == 0
+                else res.stderr.strip().splitlines()[-1] if res.stderr.strip() else "failed")
+        print(f"host: import {mod}: {'yes' if res.returncode == 0 else 'no'} ({said})")
 
 
 def toolchain() -> None:
@@ -269,6 +303,12 @@ def check_kernels() -> dict:
             (48, 1408, 16, 24, True),   # predictor geometry
             (2, 200, 16, 64, False),    # ragged N
             (4, 1664, 16, 80, True),    # vit_huge geometry (head_dim 80 packs)
+            (2, 4608, 16, 80, True),    # vith16_384: 8 x 24 x 24 video tokens
+            # a tensor rank's 8 of 16 heads (mesh_tensor: 2): the predictor,
+            # ViT-L and ViT-H
+            (8, 1408, 8, 24, True),
+            (8, 1664, 8, 64, True),
+            (8, 1568, 8, 80, True),
         ):
             qkv = randn((b, n, 3 * h * d), dtype)
             mask = None
@@ -398,6 +438,10 @@ def check_bwd_kernels() -> dict:
             ("vit_huge context", 4, 1664, 16, 80, "random"),
             ("vith16_384", 2, 4608, 16, 80, "tail"),
             ("ragged", 2, 200, 16, 64, None),
+            # a tensor rank's 8 of 16 heads (mesh_tensor: 2)
+            ("tensor predictor", 8, 1408, 8, 24, "prefix"),
+            ("tensor vit_large context", 8, 512, 8, 64, "random"),
+            ("tensor vit_huge context", 8, 512, 8, 80, "prefix"),
         ):
             qkv = randn((b, n, 3 * h * d), dtype)
             dout = randn((b, n, h * d), dtype)
@@ -683,19 +727,24 @@ def time_kernels() -> dict:
 
 @contextlib.contextmanager
 def plain_packed_attention():
-    """Route the encoder's packed attention through the plain version."""
+    """Route the models' packed attention through the plain versions: the
+    differentiable one (autograd over K1's plain version) and, in a remat'd
+    block, K1's and K2's plain versions."""
     from avjepa_tpu_torch.models import modules
-    from avjepa_tpu_torch.ops.flash_attention import flash_attention_qkv_ref
+    from avjepa_tpu_torch.ops import flash_attention as fa
 
-    kernel = modules.flash_attention_qkv
+    kernels = {name: getattr(modules, name) for name in (
+        "flash_attention_qkv", "flash_attention_qkv_fwd", "flash_attention_qkv_bwd")}
     modules.flash_attention_qkv = (
-        lambda qkv, h, key_mask=None, scale=None:
-        flash_attention_qkv_ref(qkv, h, key_mask, scale)[0]
-    )
+        lambda qkv, h, key_mask=None, scale=None: fa.flash_attention_qkv_ref(qkv, h, key_mask,
+                                                                              scale)[0])
+    modules.flash_attention_qkv_fwd = fa.flash_attention_qkv_ref
+    modules.flash_attention_qkv_bwd = fa.flash_attention_qkv_bwd_ref
     try:
         yield
     finally:
-        modules.flash_attention_qkv = kernel
+        for name, fn in kernels.items():
+            setattr(modules, name, fn)
 
 
 def _profile(run, label: str, filename: str, steps: int = 2) -> float:
@@ -842,6 +891,12 @@ def _check_run(folder: str, tag: str, steps: int) -> tuple[list, list]:
     return losses, [float(r["iter-time-ms"]) for r in rows]
 
 
+# K1 launches a step: every attention layer once (the target encoder's, the
+# two context passes', the predictor's), remat or not
+VITL_K1_A_STEP = 24 + 2 * 24 + 12
+VITH_K1_A_STEP = 32 + 2 * 32 + 12
+
+
 def run_train(workdir: str) -> dict:
     """The training slice through the port's entry points: ViT-L/16 AV
     (av-vitl16.yaml, bf16, batch 24, remat) for 6 steps through
@@ -869,10 +924,9 @@ def run_train(workdir: str) -> dict:
     wall = time.perf_counter() - t0
     vitl = dict(fa.LAUNCHES)
     # per step: fwd_packed 24 (target) + 2 x 24 (context) + 12 (predictor),
-    # plus the per-block recompute of the 60 trained layers under remat;
+    # remat or not (the remat policy keeps the attention's out and lse);
     # bwd_packed 2 x 24 + 12
-    want = {"fwd_packed": steps * (84 + (60 if cfg.tpu.remat else 0)),
-            "bwd_packed": steps * 60, "fwd": 0, "bwd": 0}
+    want = {"fwd_packed": steps * VITL_K1_A_STEP, "bwd_packed": steps * 60, "fwd": 0, "bwd": 0}
     print(f"train: ViT-L AV launches {vitl} (expected {want})")
     if vitl != want:
         raise AssertionError("ViT-L pretrain launch counts differ")
@@ -913,9 +967,9 @@ def run_train(workdir: str) -> dict:
     fa.reset_launches()
     launch(path)
     vitt = dict(fa.LAUNCHES)
-    # per step: fwd 12 (target) + 2 x 12 (context) + 24 recomputed, bwd 24;
-    # fwd_packed 12 (predictor) + 12 recomputed, bwd_packed 12
-    want = {"fwd": 2 * 60, "bwd": 2 * 24, "fwd_packed": 2 * 24, "bwd_packed": 2 * 12}
+    # per step: fwd 12 (target) + 2 x 12 (context), bwd 24; fwd_packed 12
+    # (predictor), bwd_packed 12; remat recomputes no attention
+    want = {"fwd": 2 * 36, "bwd": 2 * 24, "fwd_packed": 2 * 12, "bwd_packed": 2 * 12}
     print(f"train: vit_tiny launches {vitt} (expected {want})")
     if vitt != want:
         raise AssertionError("vit_tiny pretrain launch counts differ")
@@ -972,16 +1026,19 @@ def check_train_vs_plain(workdir: str, batch: int = 4) -> None:
 
 
 def time_train_step(workdir: str, remat: bool, steps: int = 5, rounds: int = 1) -> dict:
-    """ViT-L AV train step on a resident batch of 24, with per-block remat
-    (the YAML's setting) or without: ms by CUDA events over ``rounds``
-    rounds of ``steps`` steps (each round printed; the median kept),
-    clips/s, peak memory; with remat, then a torch.profiler window of 2
-    steps (_profile, to chiprun_out/train_profile.txt)."""
+    """ViT-L AV train step on a resident batch of 24, with the remat policy
+    (the YAML's setting) or without: the first step's loss and grad norms
+    and its K1 launches (asserted: one a layer either way), then ms by CUDA
+    events over ``rounds`` rounds of ``steps`` steps (each round printed;
+    the median kept), clips/s, peak memory; with remat, then a
+    torch.profiler window of 2 steps (_profile, to
+    chiprun_out/train_profile.txt)."""
     import statistics
 
     import torch
 
     from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
     from avjepa_tpu_torch.train import pretrain
     from avjepa_tpu_torch.train.step import train_step
 
@@ -994,9 +1051,15 @@ def time_train_step(workdir: str, remat: bool, steps: int = 5, rounds: int = 1) 
     inputs = h.to_device(video, audio, masks)
 
     def run():
-        train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
+        return train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
 
-    run()
+    fa.reset_launches()
+    m = run()
+    first = {k: m[k] for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+    k1 = fa.LAUNCHES["fwd_packed"]
+    if k1 != VITL_K1_A_STEP:
+        raise AssertionError(f"ViT-L step (remat {remat}): K1 launched {k1} times, not "
+                             f"{VITL_K1_A_STEP}")
     torch.cuda.reset_peak_memory_stats()
     all_ms = [_time_ms(run, steps) for _ in range(rounds)]
     ms = statistics.median(all_ms)
@@ -1005,12 +1068,26 @@ def time_train_step(workdir: str, remat: bool, steps: int = 5, rounds: int = 1) 
     print(f"train: ViT-L AV step {ms:.1f} ms on a resident batch of {b} (CUDA events, "
           f"{steps} steps a round; rounds {', '.join(f'{x:.1f}' for x in all_ms)}), "
           f"{1000 * b / ms:.2f} clips/s; peak allocated {peak / 2**30:.2f} GiB; "
-          f"remat {cfg.tpu.remat}")
-    result = {"step_ms": ms, "clips_per_s": 1000 * b / ms, "peak_gib": peak / 2**30}
+          f"remat {cfg.tpu.remat}; first step {first}, K1 launches {k1} a step")
+    result = {"step_ms": ms, "clips_per_s": 1000 * b / ms, "peak_gib": peak / 2**30,
+              "first": first}
     if not remat:
         return result
     _profile(run, "train: ViT-L AV step", "train_profile.txt")
     return result
+
+
+def check_remat_bits(remat: dict, plain: dict) -> None:
+    """The remat'd ViT-L step's first loss and grad norms against the step
+    without remat on the same batch and weights: equal to the bit (the
+    kernels and cuBLAS are deterministic at fixed shapes, and the recompute
+    runs the same ops on the same inputs)."""
+    same = {k: remat["first"][k] == plain["first"][k] for k in remat["first"]}
+    print(f"train: remat vs no remat, first step: {remat['first']} vs {plain['first']}: "
+          f"equal to the bit {same}; peak {remat['peak_gib']:.2f} vs {plain['peak_gib']:.2f} "
+          f"GiB; {card_line()}")
+    if not all(same.values()):
+        raise AssertionError("the remat'd step differs from the step without remat")
 
 
 def _rel_err(got, want) -> float:
@@ -1698,7 +1775,7 @@ def run_distributed_world1(workdir: str) -> dict:
                                       "--fname", paths[1], paths["eval"])
     wall = time.perf_counter() - t0
     rows = _csv_rows(os.path.join(folder_dp, f"{tag}_r0.csv"))
-    want = {"fwd_packed": 4 * 144, "bwd_packed": 4 * 60}
+    want = {"fwd_packed": 4 * VITL_K1_A_STEP, "bwd_packed": 4 * 60}
     got = {k: report["launches"][k] for k in want}
     print(f"dp: world 1 through main_distributed: backend {report['backend']}, world "
           f"{report['world']}, device {report['device']}; launches {report['launches']} "
@@ -1734,7 +1811,7 @@ def run_distributed_world1(workdir: str) -> dict:
     rows = _csv_rows(os.path.join(folder_dp, f"{tag}_r0.csv"))
     if "resumed from step 4 " not in out or len(rows) != 8:
         raise AssertionError(f"--resume-preempt did not resume at step 4 ({len(rows)} rows)")
-    if report["launches"]["fwd_packed"] != 4 * 144:
+    if report["launches"]["fwd_packed"] != 4 * VITL_K1_A_STEP:
         raise AssertionError(f"resumed run launches {report['launches']}")
     print(f"dp: --resume-preempt resumed from step 4 and ran steps 5-8, losses "
           f"{[float(r['loss']) for r in rows[4:]]}; phase 12 (a) took "
@@ -1968,32 +2045,79 @@ def _step_record(h, inputs: dict, gather: bool, part=None) -> dict:
             "slice_digest": None if part is None else _digest(models, part=part)}
 
 
-def _vith_inputs(h, workdir: str, rank: int = 0, world: int = 1) -> dict:
-    """This rank's rows of the ViT-H batch that phase 13 (a) saved."""
+def _vith_inputs(h, workdir: str, shard: int = 0, shards: int = 1, rows: int = None) -> dict:
+    """Shard ``shard`` of ``shards`` of the first ``rows`` rows (all by
+    default) of the ViT-H batch that phase 13 (a) saved."""
     import numpy as np
 
     from avjepa_tpu_torch.masks.multiblock3d import MaskSet
 
     z = np.load(os.path.join(workdir, "vith-batch.npz"))
-    b = z["video"].shape[0] // world
-    rows = slice(rank * b, (rank + 1) * b)
-    masks = [MaskSet(enc=z[f"enc{i}"][rows], pred=z[f"pred{i}"][rows],
-                     enc_idx=z[f"idx{i}"][rows], union_idx=z[f"union{i}"][rows])
+    b = (rows or z["video"].shape[0]) // shards
+    cut = slice(shard * b, (shard + 1) * b)
+    masks = [MaskSet(enc=z[f"enc{i}"][cut], pred=z[f"pred{i}"][cut],
+                     enc_idx=z[f"idx{i}"][cut], union_idx=z[f"union{i}"][cut])
              for i in range(len(h.cfg.mask))]
-    return h.to_device(z["video"][rows], None, masks)
+    return h.to_device(z["video"][cut], None, masks)
+
+
+# phase 14: the parameters whose pieces each tensor rank holds against the
+# unsharded step's after each step: cut by heads (qkv and its bias), by
+# columns (proj, fc2, predictor_proj), by rows (fc1), and whole ones
+TENSOR_CHECK = {
+    "encoder": ("blocks.0.attn.qkv.weight", "blocks.0.attn.qkv.bias", "blocks.0.attn.proj.weight",
+                "blocks.31.mlp.fc1.weight", "blocks.31.mlp.fc2.weight", "blocks.31.mlp.fc2.bias",
+                "norm.weight"),
+    "predictor": ("predictor_blocks.0.attn.qkv.weight", "predictor_blocks.11.mlp.fc2.weight",
+                  "predictor_proj.weight", "predictor_proj.bias"),
+    "target_encoder": ("blocks.0.attn.qkv.weight", "blocks.31.mlp.fc2.weight"),
+}
+
+
+def _tensor_pieces(h) -> dict:
+    """This rank's piece of each TENSOR_CHECK parameter (a copy), with its
+    cut (None: held whole)."""
+    from avjepa_tpu_torch.parallel import tensor
+
+    out = {}
+    for name, keys in TENSOR_CHECK.items():
+        model = getattr(h.state, name)
+        params, splits = dict(model.named_parameters()), tensor.splits(model)
+        for k in keys:
+            out[f"{name}/{k}"] = (params[k].detach().clone(), splits.get(k))
+    return out
+
+
+def _tensor_update_errors(start: dict, now: dict, ref_start: dict, ref_now: dict) -> dict:
+    """Relative L2 distance of this rank's update of each TENSOR_CHECK piece
+    since ``start`` (``_tensor_pieces``) from the same piece of the unsharded
+    steps' update since ``ref_start`` (whole tensors)."""
+    out = {}
+    for key, (p, split) in now.items():
+        want = (ref_now[key] - ref_start[key]).to(p.device)
+        if split is not None:
+            want = split.piece(want)
+        out[key] = ((p - start[key][0] - want).norm() / want.norm()).item()
+    return out
 
 
 def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: int,
-              device: str = "cuda", backend: str = "nccl", profile: bool = False) -> None:
-    """One rank of a ViT-H run in a process of its own: vith16.yaml at batch
-    24 / world a rank on a ``data`` x ``fsdp_`` mesh (``tpu.mesh_data`` /
-    ``mesh_fsdp`` through ``pretrain.setup``; fsdp_ > 1 shards the blocks);
-    ``device`` "cuda" takes cuda:LOCAL_RANK, and two ranks on one card take
-    "cuda:0" over gloo (NCCL takes one rank a device). Two steps on this
-    rank's rows of phase 13 (a)'s batch, then, with ``profile``, one
-    step under torch.profiler; the result, with this process's peak memory,
-    to fsdp-<data>x<fsdp_>-rank<rank>.json. Over gloo the whole-weight
-    digest leaves the sharded entries out: gathering them
+              device: str = "cuda", backend: str = "nccl", profile: bool = False,
+              tensor_: int = 1, batch: int = 24, reference: str = None) -> None:
+    """One rank of a ViT-H run in a process of its own: vith16.yaml on a
+    ``data`` x ``fsdp_`` x ``tensor_`` mesh (``tpu.mesh_*`` through
+    ``pretrain.setup``; fsdp_ > 1 shards the blocks, tensor_ > 1 cuts their
+    heads and MLP width) at a global batch of ``batch``; ``device`` "cuda"
+    takes cuda:LOCAL_RANK, and two ranks on one card take "cuda:0" over gloo
+    (NCCL takes one rank a device). Two steps on this rank's shard of the
+    first ``batch`` rows of phase 13 (a)'s batch, then, with ``profile``,
+    one step under torch.profiler; the result, with this process's peak
+    memory, the tensor all-reduces a step and, with ``reference`` (a file of
+    the TENSOR_CHECK tensors before and after each unsharded step), each
+    checked piece's update against the unsharded update after each step
+    (and what a rank that missed its second update reads), to
+    fsdp-<data>x<fsdp_>x<tensor_>-rank<rank>.json. Over gloo the
+    whole-weight digest leaves the sharded entries out: gathering them
     (``DTensor.full_tensor``, a functional collective) dies with SIGSEGV
     over gloo on CUDA tensors in torch 2.11, while FSDP2's own collectives
     run; so each rank also digests its slice (``_digest``'s ``part``: rank
@@ -2012,18 +2136,36 @@ def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: 
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     device = dist.init_distributed(device, backend=backend, timeout_s=600)
     try:
-        cfg = load_config(_vith_cfg(workdir, 24 // world,
-                                    tpu={"mesh_data": data, "mesh_fsdp": fsdp_}))
+        cfg = load_config(_vith_cfg(workdir, batch // (world // tensor_), tpu={
+            "mesh_data": data, "mesh_fsdp": fsdp_, "mesh_tensor": tensor_}))
         h = pretrain.setup(cfg, device)
         h.loader.close()
         params = list(h.state.encoder.parameters())
-        inputs = _vith_inputs(h, workdir, rank, world)
+        mesh = h.state.mesh
+        inputs = _vith_inputs(h, workdir, mesh.batch_rank, mesh.batch, batch)
+        ref = None if reference is None else torch.load(os.path.join(workdir, reference))
+        pieces = [] if ref is None else [_tensor_pieces(h)]
         fa.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        records = [_step_record(h, inputs, backend == "nccl", (rank, world))
-                   for _ in range(2)]
+        records = []
+        for i in range(2):
+            before = dist.REDUCTIONS["tensor"]
+            records.append(_step_record(h, inputs, backend == "nccl", (rank, world)))
+            records[-1]["tensor_reductions"] = dist.REDUCTIONS["tensor"] - before
+            if ref is not None:
+                pieces.append(_tensor_pieces(h))
+                records[-1]["update_errors"] = _tensor_update_errors(
+                    pieces[0], pieces[-1], ref[0], ref[i + 1])
+        if ref is not None:
+            # what the check reads for a rank that missed its second update
+            records[-1]["missed_update_errors"] = _tensor_update_errors(
+                pieces[0], pieces[1], ref[0], ref[2])
+        heads = {name: blk.attn.qkv.weight.shape[0] // (3 * blk.attn.head_dim)
+                 for name, blk in (("encoder", h.state.encoder.blocks[0]),
+                                   ("predictor", h.state.predictor.blocks[0]))}
         result = {"backend": torch.distributed.get_backend(), "world": dist.world(),
-                  "mesh": [data, fsdp_], "steps": records, "launches": dict(fa.LAUNCHES),
+                  "mesh": [data, fsdp_, tensor_], "steps": records,
+                  "launches": dict(fa.LAUNCHES), "local_heads": heads,
                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                   "encoder_sharded_params": sum(p.numel() for p in params
                                                 if fsdp.is_sharded(p)),
@@ -2040,27 +2182,31 @@ def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: 
             if rank == 0:
                 os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
                 with open(os.path.join(ROOT, "chiprun_out",
-                                       f"fsdp_{data}x{fsdp_}_profile.txt"), "w") as f:
+                                       f"fsdp_{data}x{fsdp_}x{tensor_}_profile.txt"), "w") as f:
                     f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                                       row_limit=40))
-        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}-rank{rank}.json"), "w") as f:
+        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}x{tensor_}-rank{rank}.json"),
+                  "w") as f:
             json.dump(result, f)
     finally:
         dist.shutdown()
 
 
 def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: str = "cuda",
-                      backend: str = "nccl", profile: bool = False) -> list:
+                      backend: str = "nccl", profile: bool = False, tensor_: int = 1,
+                      batch: int = 24, reference: str = None) -> list:
     """``world`` fsdp_rank processes; their results, rank by rank."""
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    label = f"{data}x{fsdp_}x{tensor_}"
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import chip_smoke; chip_smoke.fsdp_rank({r}, {world}, {port}, "
                                f"{workdir!r}, {data}, {fsdp_}, {device!r}, {backend!r}, "
-                               f"profile={profile})"],
+                               f"profile={profile}, tensor_={tensor_}, batch={batch}, "
+                               f"reference={reference!r})"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         # the ranks share the host's cores, as main_distributed's do
         env=dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world))))
@@ -2075,14 +2221,13 @@ def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: s
                 p.kill()
                 p.wait()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", f"fsdp_{data}x{fsdp_}.log"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", f"fsdp_{label}.log"), "w") as f:
         f.write("\n".join(outs))
     if any(p.returncode for p in procs):
-        raise AssertionError(f"a {data}x{fsdp_} rank failed:\n"
-                             + "\n".join(o[-3000:] for o in outs))
+        raise AssertionError(f"a {label} rank failed:\n" + "\n".join(o[-3000:] for o in outs))
     results = []
     for r in range(world):
-        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}-rank{r}.json")) as f:
+        with open(os.path.join(workdir, f"fsdp-{label}-rank{r}.json")) as f:
             results.append(json.load(f))
     return results
 
@@ -2131,9 +2276,10 @@ def run_vith(workdir: str) -> dict:
           f"{setup_s:.1f} s; first step loss {first['loss']:.6f}, enc grad norm "
           f"{first['enc_grad_norm']:.4e}, pred grad norm {first['pred_grad_norm']:.4e}; "
           f"launches a step {launches}")
-    if not (launches["fwd_packed"] and launches["bwd_packed"]) or not math.isfinite(
-            first["loss"]):
-        raise AssertionError(f"the ViT-H step did not run through K1/K2: {launches}, {first}")
+    want = {"fwd_packed": VITH_K1_A_STEP, "bwd_packed": VITH_K1_A_STEP - 32, "fwd": 0, "bwd": 0}
+    if launches != want or not math.isfinite(first["loss"]):
+        raise AssertionError(f"the ViT-H step's launches {launches} are not {want}, or its "
+                             f"loss is not finite: {first}")
 
     def run():
         train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
@@ -2242,6 +2388,122 @@ def run_vith_fsdp(workdir: str, vith: dict) -> dict:
     return runs
 
 
+# phase 14: ViT-H under tpu.mesh_tensor: 2, two gloo ranks on the one card,
+# against the unsharded step in this process on the same 4 rows of phase 13
+# (a)'s batch: the row-parallel layers sum their ranks' f32 partial products
+# in another order than one GEMM does, in bf16 through 44 layers, forward and
+# backward (phase 13 (b)'s tolerances of a sharded step against the
+# unsharded one). Each checked weight piece's update since the start against
+# the same piece of the unsharded update, after each step: two AdamW steps
+# move a weight by ~1e-3 of itself, too little for the weights themselves to
+# show a wrong update. An AdamW update is about +-lr a step, the sign of an
+# element's gradient, so the rounding of a near-zero gradient flips an
+# element's update: a relative L2 of 2 sqrt(flipped share). The limit lies
+# between that noise and what a rank that missed its second update reads
+# (its first update against the unsharded two: printed, and asserted above
+# the limit); a piece cut from the wrong place reads ~1.4.
+TENSOR_BATCH = 4
+TENSOR_LOSS_REL_TOL = 1e-3
+TENSOR_NORM_REL_TOL = 1e-2
+TENSOR_UPDATE_REL_TOL = 0.15
+# the tensor all-reduces of a ViT-H step: two a layer forward (attention and
+# MLP) and two backward; a remat'd layer's recompute stops after the last
+# tensor the backward needs, before the MLP's all-reduce, so it adds one.
+# The target encoder runs forward only; the two context passes and the
+# predictor run all three; the predictor's output projection adds one
+# forward and one backward
+VITH_TENSOR_REDUCTIONS = 2 * 32 + 5 * (2 * 32 + 12) + 2
+
+
+def run_vith_tensor(workdir: str) -> dict:
+    """Phase 14: vith16.yaml (ViT-H/16 video at full width; predictor 12 x
+    384, 16 heads of 24; bf16; remat) under ``tpu.mesh_tensor: 2``: two
+    steps in this process unsharded on the first TENSOR_BATCH rows of phase
+    13 (a)'s batch (their TENSOR_CHECK weights saved before and after
+    each), then two gloo ranks on the one card, each running the whole
+    batch of 4 with the Megatron layers cut over the two (``fsdp_rank``).
+    Held: each rank's losses and grad norms against the unsharded step's,
+    the updates of its pieces of the checked weights against the same
+    pieces of the unsharded updates, the
+    packed kernels on 8 local heads of 80 (encoder) and of 24 (predictor)
+    with one K1 launch a layer, and the tensor all-reduces a step; printed:
+    each rank's peak memory and ms a step."""
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+
+    t_phase = time.perf_counter()
+    h = pretrain.setup(load_config(_vith_cfg(workdir, TENSOR_BATCH)), torch.device("cuda", 0))
+    h.loader.close()
+    inputs = _vith_inputs(h, workdir, rows=TENSOR_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+
+    def checked():
+        return {f"{name}/{k}": dict(getattr(h.state, name).named_parameters())[k].detach().cpu()
+                for name, keys in TENSOR_CHECK.items() for k in keys}
+
+    ref_steps, saved = [], [checked()]
+    for _ in range(2):
+        ref_steps.append(_step_record(h, inputs, gather=False))
+        saved.append(checked())
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(saved, os.path.join(workdir, "tensor-ref.pt"))
+    del h, inputs
+    torch.cuda.empty_cache()
+    ranks = _spawn_fsdp_ranks(workdir, 2, 1, 1, "cuda:0", "gloo", tensor_=2,
+                              batch=TENSOR_BATCH, reference="tensor-ref.pt")
+    want_launches = {"fwd_packed": 2 * VITH_K1_A_STEP, "bwd_packed": 2 * (VITH_K1_A_STEP - 32),
+                     "fwd": 0, "bwd": 0}
+    for rank, r in enumerate(ranks):
+        worst = {}
+        for i, (got, want) in enumerate(zip(r["steps"], ref_steps)):
+            rel = {k: abs(got[k] - want[k]) / abs(want[k])
+                   for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in got["update_errors"].items()}
+            print(f"vith16 tensor 2, rank {rank}, step {i + 1}: loss {got['loss']:.6f} vs "
+                  f"{want['loss']:.6f} unsharded, enc grad norm {got['enc_grad_norm']:.4e} vs "
+                  f"{want['enc_grad_norm']:.4e}, pred {got['pred_grad_norm']:.4e} vs "
+                  f"{want['pred_grad_norm']:.4e}: rel {', '.join(f'{v:.2e}' for v in rel.values())}"
+                  f" (tol {TENSOR_LOSS_REL_TOL:g}, {TENSOR_NORM_REL_TOL:g}); its weight pieces' "
+                  f"updates since the start: largest rel L2 from the unsharded updates "
+                  f"{max(got['update_errors'].values()):.2e} (tol {TENSOR_UPDATE_REL_TOL:g}); "
+                  f"{got['tensor_reductions']} tensor all-reduces; {got['ms']:.1f} ms (host clock "
+                  f"to a sync)")
+            if rel["loss"] > TENSOR_LOSS_REL_TOL or max(
+                    rel["enc_grad_norm"], rel["pred_grad_norm"]) > TENSOR_NORM_REL_TOL:
+                raise AssertionError(f"rank {rank}: the tensor-parallel ViT-H step disagrees "
+                                     "with the unsharded step")
+            if max(got["update_errors"].values()) > TENSOR_UPDATE_REL_TOL:
+                raise AssertionError(f"rank {rank}: weight pieces' updates differ from the "
+                                     f"unsharded updates: {got['update_errors']}")
+            if got["tensor_reductions"] != VITH_TENSOR_REDUCTIONS:
+                raise AssertionError(f"rank {rank}: {got['tensor_reductions']} tensor "
+                                     f"all-reduces a step, not {VITH_TENSOR_REDUCTIONS}")
+        missed = r["steps"][-1]["missed_update_errors"]
+        print(f"vith16 tensor 2, rank {rank}: a rank that missed its second update would read "
+              f"{min(missed.values()):.2e} to {max(missed.values()):.2e} (tol "
+              f"{TENSOR_UPDATE_REL_TOL:g})")
+        if min(missed.values()) <= TENSOR_UPDATE_REL_TOL:
+            raise AssertionError(f"rank {rank}: the update check cannot see a missed update: "
+                                 f"{missed}")
+        print(f"vith16 tensor 2, rank {rank}: transport {r['backend']} over CUDA tensors, world "
+              f"{r['world']}; local heads {r['local_heads']}; launches over 2 steps "
+              f"{r['launches']} (expected {want_launches}); peak allocated {r['peak_gib']:.2f} "
+              f"GiB; worst update rel L2 by parameter "
+              f"{ {k: float(f'{v:.2e}') for k, v in worst.items()} }")
+        if r["backend"] != "gloo" or r["world"] != 2 or r["mesh"] != [1, 1, 2]:
+            raise AssertionError(f"not two gloo ranks of tensor 2: {r}")
+        if r["launches"] != want_launches or r["local_heads"] != {"encoder": 8, "predictor": 8}:
+            raise AssertionError(f"rank {rank}: not the packed kernels on 8 local heads")
+    print(f"vith16 tensor 2: a rank's peak {ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f}"
+          f" GiB against {ref_peak:.2f} GiB unsharded at batch {TENSOR_BATCH} in one process; "
+          f"step ms rank 0 {[round(x['ms'], 1) for x in ranks[0]['steps']]} against unsharded "
+          f"{[round(x['ms'], 1) for x in ref_steps]}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return {"ranks": ranks, "ref": ref_steps, "ref_peak_gib": ref_peak}
+
+
 def main() -> None:
     try:
         import torch
@@ -2252,6 +2514,7 @@ def main() -> None:
     if importlib.util.find_spec("avjepa_tpu_torch") is None:
         fail("avjepa_tpu_torch is not importable: run from the root of a checkout")
 
+    host_facts()
     toolchain()
     build()
     errs = {**check_kernels(), **check_bwd_kernels()}
@@ -2261,8 +2524,8 @@ def main() -> None:
         run_slice(workdir)
         train = run_train(workdir)
         check_train_vs_plain(workdir)
-        time_train_step(workdir, remat=True, rounds=3)
-        time_train_step(workdir, remat=False)
+        check_remat_bits(time_train_step(workdir, remat=True, rounds=3),
+                         time_train_step(workdir, remat=False))
         run_avprediction(workdir, train["ckpt"])
         check_probe_vs_plain(workdir, train["ckpt"])
         time_probe_step(workdir, train["ckpt"])
@@ -2276,6 +2539,7 @@ def main() -> None:
         t0 = time.perf_counter()
         run_vith_fsdp(workdir, run_vith(workdir))
         print(f"vith16: phase 13 took {time.perf_counter() - t0:.1f} s")
+        run_vith_tensor(workdir)
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)

@@ -150,8 +150,10 @@ def test_flash_falls_back_like_jax():
 
 def test_wrappers_check_inputs():
     qkv = torch.zeros(1, 128, 3 * 3 * 64)
-    with pytest.raises(ValueError, match="cannot pack"):
-        fa.flash_attention_qkv(qkv, 3)  # 3 heads of 64 do not pack
+    with pytest.raises(ValueError, match="does not split"):
+        fa.flash_attention_qkv(qkv, 5)  # 576 features are not 3 x 5 heads
+    with pytest.raises(ValueError, match="does not split"):
+        fa.flash_attention_qkv(torch.zeros(1, 128, 3 * 2 * 192), 2)  # head_dim 192 > 128
     with pytest.raises(ValueError, match="key_mask shape"):
         fa.flash_attention_qkv(torch.zeros(1, 128, 384), 2, torch.ones(1, 127, dtype=torch.bool))
     # a tensor on another device is refused, never computed on the CPU

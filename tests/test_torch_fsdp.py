@@ -127,15 +127,16 @@ def test_helpers_without_sharding():
 
 @pytest.fixture
 def one_rank_group():
-    """A one-rank gloo process group in this process, left on exit."""
+    """A one-rank gloo process group in this process, left on exit, as a
+    mesh whose fsdp axis is that one rank."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                          rank=0, world_size=1)
     try:
-        yield torch.distributed.device_mesh.init_device_mesh("cpu", (1,),
-                                                             mesh_dim_names=("fsdp",))
+        yield dist.Mesh(1, 1, 1, torch.distributed.device_mesh.init_device_mesh(
+            "cpu", (1,), mesh_dim_names=("fsdp",)))
     finally:
         torch.distributed.destroy_process_group()
 

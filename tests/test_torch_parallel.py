@@ -161,10 +161,13 @@ def _one_thread():
 # the worker modes spawned together, each group well inside the join limit
 # on a loaded CPU; avprediction and the fsdp apps read pretrain's
 # checkpoints; hsdp_step runs on four ranks, the others on two
-GROUPS = (("step", "info"), ("pretrain",), ("preempt",), ("avprediction",), ("eval", "extract"),
-          ("fsdp_step",), ("fsdp_pretrain", "fsdp_vjepa"), ("fsdp_avprediction",),
-          ("hsdp_step",))
-NEEDS = {"avprediction": "pretrain", "fsdp_pretrain": "pretrain", "fsdp_avprediction": "pretrain"}
+# (the tensor-axis modes ride in groups that were there: tp_pretrain after
+# pretrain, whose checkpoint it resumes)
+GROUPS = (("step", "info"), ("pretrain", "tp_pretrain"), ("preempt",), ("avprediction",),
+          ("eval", "extract"), ("fsdp_step", "tp_step"), ("fsdp_pretrain", "fsdp_vjepa"),
+          ("fsdp_avprediction", "tp_avprediction"), ("hsdp_step", "tp_fsdp_step"))
+NEEDS = {"avprediction": "pretrain", "fsdp_pretrain": "pretrain", "fsdp_avprediction": "pretrain",
+         "tp_avprediction": "pretrain"}
 WORLD = {"hsdp_step": 4}
 
 
@@ -340,21 +343,51 @@ def _check_sharding(sharding: dict, shards: int, index: int) -> None:
     (``index`` of ``shards``) of dimension 0, as ``torch.chunk`` cuts it."""
     for name, params in sharding.items():
         assert params, name
-        for k, (full, shard) in params.items():
+        for k, (full, shard, _) in params.items():
             per = -(-full[0] // shards)
             rows = max(0, min(per, full[0] - index * per))
             assert shard == [rows, *full[1:]], (name, k, full, shard)
 
 
+# the port's models cut by the tensor axis: the worker's models have 3
+# heads, which do not divide over 2 ranks, so their attention stays whole
+# (as JAX's param_shardings replicates an axis that does not divide); their
+# MLPs and the predictor's output projection are cut
+TP_CUT = (r"(blocks|predictor_blocks)\.\d+\.mlp\.fc1\.(weight|bias)",
+          r"(blocks|predictor_blocks)\.\d+\.mlp\.fc2\.weight", r"predictor_proj\.weight")
+
+
+def _check_tensor_split(dp, sharding: dict) -> None:
+    """The parameters the tensor axis cuts are TP_CUT's, each to half of its
+    whole shape along the Megatron dimension (rows of fc1, columns of fc2
+    and predictor_proj)."""
+    import re
+
+    for name, params in sharding.items():
+        full = dp["weights"]["encoder" if name == "target_encoder" else name]
+        for k, (_, _, piece) in params.items():
+            if not any(re.fullmatch(pat, k) for pat in TP_CUT):
+                assert piece is None, (name, k)
+                continue
+            dim = 0 if ".fc1." in k else 1
+            want = list(full[k].shape)
+            want[dim] //= 2
+            assert piece == want, (name, k, piece, want)
+
+
 def _check_step_run(dp, prefix: str, mode: str, case: str, world: int, shards: int,
-                    weight_rel: float = 1e-5) -> None:
+                    weight_rel: float = 1e-5, grad_reductions: int = 0,
+                    shard_reductions: int = 2, tensor: int = 1) -> None:
     """A sharded run of the step mode ``mode`` against one process, the data
     axis and JAX: first-step metrics within 1e-5 relative, gathered
     gradients within 1e-4 relative L2, the three losses within 2e-3 of JAX's,
     the weights after three steps within ``weight_rel`` relative L2 of the
-    data axis's; no gradient all-reduce (FSDP2's reduce-scatter averaged
-    every gradient) and two all-reduces over the shards (the norms, the
-    moments' statistics) a step; the same losses and whole weights on every rank. (Against one
+    data axis's; ``grad_reductions`` gradient all-reduces a step (none when
+    FSDP2's reduce-scatter averaged every gradient) and
+    ``shard_reductions`` all-reduces over the shards (the norms, the
+    moments' statistics) a step, and with ``tensor`` > 1 two over the
+    tensor group, which cut TP_CUT's parameters; the same losses and
+    whole weights on every rank. (Against one
     process the weights differ more: AdamW divides each gradient by the
     root of its second moment, which magnifies the sums' other order in the
     smallest gradients.)"""
@@ -362,8 +395,13 @@ def _check_step_run(dp, prefix: str, mode: str, case: str, world: int, shards: i
     for r in rs[1:]:
         assert r["losses"] == rs[0]["losses"] and r["digests"] == rs[0]["digests"]
     for rank, r in enumerate(rs):
-        assert r["reductions"] == [0, 0, 0] and r["shard_reductions"] == [2, 2, 2]
-        _check_sharding(r["sharding"], shards, rank % shards)
+        assert r["reductions"] == [grad_reductions] * 3, r["reductions"]
+        assert r["shard_reductions"] == [shard_reductions] * 3, r["shard_reductions"]
+        if shards > 1:
+            _check_sharding(r["sharding"], shards, rank // tensor % shards)
+        if tensor > 1:
+            assert [t[1] for t in r["tensor_reductions"]] == [2, 2, 2]
+            _check_tensor_split(dp, r["sharding"])
     first = dp["results"][mode, 0][f"{case}_first"]
     one, jx = _one_process(dp, case), _jax_run(dp, case)
     for k in ("loss", "enc_grad_norm", "pred_grad_norm", "enc_grad_avg", "pred_grad_avg",
@@ -400,6 +438,120 @@ def test_hsdp_step_matches_data_one_process_and_jax(dp):
     weights within the gradients' 1e-4 of the two-rank data axis's: four
     ranks of one sample sum the batch in another split than two of two."""
     _check_step_run(dp, "hsdp_", "hsdp_step", "unequal", world=4, shards=2, weight_rel=1e-4)
+
+
+def test_tensor_step_matches_data_one_process_and_jax(dp):
+    """``mesh_tensor: 2``: both ranks run the whole global batch of 4, the
+    Megatron layers cut over them (TP_CUT); the step as
+    ``test_fsdp_step_matches_data_one_process_and_jax`` holds it, with one
+    gradient all-reduce a step (over the batch group, one rank) and the
+    weights within the gradients' 1e-4 of the data axis's: the row-parallel
+    products sum their halves in another order."""
+    _check_step_run(dp, "tp_", "tp_step", "unequal", world=2, shards=1, weight_rel=1e-4,
+                    grad_reductions=1, shard_reductions=0, tensor=2)
+
+
+def test_tensor_fsdp_step_matches_data_one_process_and_jax(dp):
+    """Four ranks, fsdp 2 x tensor 2: each tensor piece sharded by FSDP2
+    over the two ranks of its batch group; the step as
+    ``test_tensor_step_matches_data_one_process_and_jax`` holds it, with no
+    gradient all-reduce (the reduce-scatter averaged every gradient)."""
+    _check_step_run(dp, "tp_fsdp_", "tp_fsdp_step", "unequal", world=4, shards=2,
+                    weight_rel=1e-4, tensor=2)
+
+
+def test_tensor_mesh_lays_out_ranks_as_jax(dp):
+    """``make_mesh`` lays the ranks out row-major over (data, fsdp, tensor),
+    as ``avjepa_tpu/parallel/mesh.py:82-85`` lays out devices: rank r is
+    index r % tensor of its tensor group and shard r // tensor of the
+    sampler, index r // tensor of its batch group of data x fsdp ranks."""
+    for mode, world in (("tp_step", 2), ("tp_fsdp_step", 4)):
+        for r in range(world):
+            mesh = dp["results"][mode, r]["mesh"]
+            assert mesh == {"batch": world // 2, "batch_rank": r // 2, "tensor_index": r % 2,
+                            "batch_index": r // 2}, (mode, r, mesh)
+
+
+def test_tensor_axis_cuts_heads_within_q_k_v(dp):
+    """A tiny encoder whose 4 heads of 32 pack, cut over two ranks with
+    remat: each rank's qkv holds 2 heads of each of q, k and v ([3 x 64,
+    128]) and runs the packed path on them, once a layer under remat; the
+    output and every parameter's whole gradient equal the unsharded
+    encoder's within f32 rounding (1e-5 of the largest)."""
+    for r in range(2):
+        b = dp["results"]["tp_step", r]["block"]
+        assert b["local_qkv"] == [192, 128] and b["packed_calls"] == 2
+        assert sorted(b["cut"]) == sorted(
+            f"blocks.{i}.{k}" for i in range(2)
+            for k in ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight",
+                      "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight"))
+        assert b["out_err"] <= 1e-5 * b["out_max"]
+        for k, err in b["grad_err"].items():
+            assert err <= 1e-5 * b["grad_max"][k], (k, err, b["grad_max"][k])
+
+
+def test_tensor_pretrain_and_checkpoints_cross(dp, tmp_path):
+    """The avjepa app under ``mesh_tensor: 2`` (both ranks load the same
+    batch of 2) logs the losses of one process on the same config, and
+    writes, key by key, the checkpoint it writes (the tensor pieces joined:
+    qkv's heads back in [3, H, d] order); the tensor checkpoint loads
+    strictly in one process and writes back the same bits; the data axis's
+    step-2 checkpoint resumed under ``mesh_tensor: 2`` gives one process's
+    resumed loss from it."""
+    from avjepa_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+
+    r0, r1 = dp["results"]["tp_pretrain", 0], dp["results"]["tp_pretrain", 1]
+    assert r0["losses"] == r1["losses"] and r0["resume_losses"] == r1["resume_losses"]
+    assert len(r0["losses"]) == 2 and r0["summary"]["step"] == 3
+    tag = worker.pretrain_cfg("x")["logging"]["write_tag"]
+    one = str(tmp_path / "one")
+    pretrain.run(load_config(worker.pretrain_cfg(one)), device="cpu")
+    np.testing.assert_allclose(r0["losses"], worker.read_losses(
+        os.path.join(one, f"{tag}_r0.csv")), rtol=1e-5)
+    tp_file = os.path.join(dp["dir"], "pretrain-tp", f"{tag}-latest.pth.tar")
+    got = _checkpoint(tp_file)
+    want = _checkpoint(os.path.join(one, f"{tag}-latest.pth.tar"))
+    _assert_same_checkpoint(got, want, 1e-4)
+    assert got["world_size"] == 1 and got["step"] == 2
+
+    # tensor 2 -> one process, and back to the same bits
+    cfg = load_config(worker.pretrain_cfg(str(tmp_path / "one-from-tp")))
+    handles = pretrain.setup(cfg, torch.device("cpu"))
+    try:
+        load_train_state(tp_file, handles.state)
+        assert handles.state.step == 2
+        again = str(tmp_path / "one-from-tp.pth.tar")
+        save_train_state(again, handles.state, epoch=got["epoch"], loss=got["loss"],
+                         batch_size=got["batch_size"], lr=got["lr"], world_size=1)
+        _assert_same_checkpoint(_checkpoint(again), got, 0.0)
+    finally:
+        handles.loader.close()
+
+    # data 2 -> tensor 2, against data 2 -> one process on the same batches
+    resume = str(tmp_path / "one-resume")
+    os.makedirs(resume)
+    import shutil
+    shutil.copy(os.path.join(dp["dir"], "pretrain", "step2.pth.tar"),
+                os.path.join(resume, f"{tag}-latest.pth.tar"))
+    d = worker.pretrain_cfg(resume, optimization={"epochs": 2}, meta={"load_checkpoint": True})
+    pretrain.run(load_config(d), max_steps=1, device="cpu")
+    np.testing.assert_allclose(r0["resume_losses"], worker.read_losses(
+        os.path.join(resume, f"{tag}_r0.csv")), rtol=1e-5)
+
+
+def test_tensor_avprediction_matches_single(dp, tmp_path):
+    """avprediction under ``mesh_tensor: 2``: the frozen target encoder and
+    predictor cut, the probe whole; both ranks log the probe losses one
+    process logs on the same config."""
+    from avjepa_tpu_torch.train import avprediction
+
+    r0, r1 = dp["results"]["tp_avprediction", 0], dp["results"]["tp_avprediction", 1]
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
+    d = worker.prediction_cfg(str(tmp_path), worker.pretrain_checkpoint(dp["dir"]))
+    avprediction.run(load_config(d), device="cpu")
+    tag = d["logging"]["write_tag"]
+    np.testing.assert_allclose(r0["losses"], worker.read_losses(
+        os.path.join(str(tmp_path), f"{tag}_probe_r0.csv")), rtol=1e-4, atol=1e-6)
 
 
 def _checkpoint(path: str) -> dict:
@@ -507,7 +659,7 @@ def test_fsdp_avprediction_matches_data_and_single(dp):
         np.testing.assert_allclose(r0["eval"][k], data["eval"][k], rtol=1e-5)
     for rank, r in enumerate((r0, r1)):
         probe = r["sharding"].pop("probe")
-        assert probe and all(shard is None for _, shard in probe.values())
+        assert probe and all(shard is None for _, shard, _ in probe.values())
         _check_sharding(r["sharding"], 2, rank)
 
 
@@ -670,8 +822,8 @@ def test_helpers_are_the_identity_without_a_process_group():
         dist.make_mesh(2)
     with pytest.raises(ValueError, match="mesh 0x2x1 != 1"):
         dist.make_mesh(-1, 2)  # the fsdp axis needs its ranks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.make_mesh(-1, 1, 2)
+    with pytest.raises(ValueError, match="mesh 0x1x2 != 1"):
+        dist.make_mesh(-1, 1, 2)  # the tensor axis too
     before = dict(dist.REDUCTIONS)
     t = torch.tensor([1.0, 2.0])
     assert dist.reduce(t, "mean") is t
@@ -748,25 +900,25 @@ def test_launcher_batch_launch_folder_and_resume(tmp_path):
 
 
 def test_launcher_refuses_fsdp_and_a_missing_gpu(tmp_path, monkeypatch):
-    """The axis still refused, ``mesh_tensor: 2`` (the fsdp axis runs:
-    ``test_fsdp_*``), raises in one process and in two ranks, whose
-    launcher then exits non-zero; a CUDA run on a machine without one
-    raises before any rank starts, in a torchrun rank, and in one process:
-    no fall back to the CPU."""
+    """A mesh that does not divide the ranks, ``mesh_tensor: 3`` (the three
+    axes run: ``test_fsdp_*``, ``test_tensor_*``), raises in one process and
+    in two ranks, whose launcher then exits non-zero; a CUDA run on a
+    machine without one raises before any rank starts, in a torchrun rank,
+    and in one process: no fall back to the CPU."""
     folder, _, (pre, _) = _tiny_configs(tmp_path, epochs=1)
     with open(pre) as f:
         d = yaml.safe_load(f)
-    d["tpu"]["mesh_tensor"] = 2
+    d["tpu"]["mesh_tensor"] = 3
     with open(pre, "w") as f:
         yaml.safe_dump(d, f)
-    with pytest.raises(NotImplementedError, match="mesh_tensor=2"):
+    with pytest.raises(ValueError, match="mesh 0x1x3 != 1"):
         main_distributed.main(["--fname", pre, "--device", "cpu"])
     # the same through two ranks: the launcher exits with the failing rank's code
     res = subprocess.run(
         [sys.executable, "-m", "avjepa_tpu_torch.app.main_distributed", "--nproc-per-node",
          "2", "--device", "cpu", "--dist-timeout", "60", "--fname", pre],
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=JOIN_S)
-    assert res.returncode != 0 and "mesh_tensor=2" in res.stderr, res.stderr[-3000:]
+    assert res.returncode != 0 and "mesh 0x1x3 != 2" in res.stderr, res.stderr[-3000:]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -15,6 +15,11 @@ writing ``result_<mode>_<rank>.json`` (and the step mode's gradients) into
   - ``fsdp_step``: the same under ``mesh_fsdp: 2`` (the models sharded over
     the two ranks), recording which parameters are sharded;
   - ``hsdp_step``: the same on four ranks, a 2 x 2 (data, fsdp) mesh;
+  - ``tp_step``: the ``unequal`` case under ``mesh_tensor: 2`` (both ranks
+    on the whole global batch, the Megatron layers cut over them), the
+    mesh's rank layout, and a tiny encoder whose 4 heads are cut too (its
+    loss and gradients against the unsharded encoder in the same process);
+  - ``tp_fsdp_step``: the ``unequal`` case on four ranks, fsdp 2 x tensor 2;
   - ``info``: the collator's masks at the local batch (same seed on every
     rank) and the sampler's shard;
   - ``pretrain``: the pretrain app for 2 steps (a copy of its checkpoint
@@ -30,7 +35,10 @@ writing ``result_<mode>_<rank>.json`` (and the step mode's gradients) into
   - ``avprediction``: 2 probe steps on ``pretrain``'s checkpoint, the
     example, and the av_prediction eval;
   - ``fsdp_avprediction``: the probe steps and the eval under
-    ``mesh_fsdp: 2`` (the frozen models sharded).
+    ``mesh_fsdp: 2`` (the frozen models sharded);
+  - ``tp_pretrain``: the pretrain app under ``mesh_tensor: 2`` for 2 steps,
+    then resumed from ``pretrain``'s ``step2.pth.tar`` for 1;
+  - ``tp_avprediction``: 2 probe steps under ``mesh_tensor: 2``.
 No JAX is imported here.
 """
 
@@ -155,25 +163,41 @@ def read_losses(path: str) -> list:
         return [float(r["loss"]) for r in csv.DictReader(f) if r["epoch"] != "epoch"]
 
 
+def whole(t, split=None):
+    """``t`` whole on the host of every rank: gathered over the fsdp shards
+    and joined over the tensor group where ``split`` cuts it."""
+    from avjepa_tpu_torch.parallel import fsdp, tensor
+
+    if split is None:
+        return fsdp.full_tensor(t)
+    return tensor.gather(fsdp.full_tensor(t) if fsdp.is_sharded(t) else t.detach(), split)
+
+
 def digest(modules) -> str:
     """A hash of the modules' whole weights (gathered where sharded)."""
-    from avjepa_tpu_torch.parallel import fsdp
+    from avjepa_tpu_torch.parallel import tensor
 
     h = hashlib.sha256()
     for m in modules:
-        for v in m.state_dict().values():
-            h.update(fsdp.full_tensor(v).contiguous().numpy().tobytes())
+        splits = tensor.splits(m)
+        for k, v in m.state_dict().items():
+            h.update(whole(v, splits.get(k)).contiguous().numpy().tobytes())
     return h.hexdigest()
 
 
 def sharding(modules: dict) -> dict:
     """Each module's parameters: name -> (global shape, this rank's shard's
-    shape, or None where the parameter is not sharded)."""
-    from avjepa_tpu_torch.parallel import fsdp
+    shape, or None where the parameter is not sharded, the shape of this
+    rank's tensor piece, or None where the tensor axis does not cut it)."""
+    from avjepa_tpu_torch.parallel import fsdp, tensor
 
-    return {name: {k: [list(p.shape), list(fsdp.local(p).shape) if fsdp.is_sharded(p) else None]
-                   for k, p in m.named_parameters()}
-            for name, m in modules.items()}
+    out = {}
+    for name, m in modules.items():
+        splits = tensor.splits(m)
+        out[name] = {k: [list(p.shape), list(fsdp.local(p).shape) if fsdp.is_sharded(p) else None,
+                         list(p.shape) if k in splits else None]
+                     for k, p in m.named_parameters()}
+    return out
 
 
 def local_half(inputs: dict, rank: int, world: int) -> dict:
@@ -203,39 +227,42 @@ def build_state(weights: dict, mesh=None):
 
 
 def run_steps(rank: int, world: int, outdir: str, prefix: str = "", data: int = -1,
-              fsdp_: int = 1, cases=CASES) -> dict:
+              fsdp_: int = 1, cases=CASES, tensor_: int = 1) -> dict:
     """Three ``train_step``s of each case on this rank's rows, on a
-    ``data`` x ``fsdp_`` mesh; rank 0 writes ``<prefix>grads_<case>.npz``
-    (the first step's gradients, whole) and ``<prefix>weights_<case>.npz``
-    (the three models' weights after the last step)."""
+    ``data`` x ``fsdp_`` x ``tensor_`` mesh; rank 0 writes
+    ``<prefix>grads_<case>.npz`` (the first step's gradients, whole) and
+    ``<prefix>weights_<case>.npz`` (the three models' weights after the last
+    step)."""
     import torch
 
-    from avjepa_tpu_torch.parallel import dist, fsdp
+    from avjepa_tpu_torch.parallel import dist, fsdp, tensor
     from avjepa_tpu_torch.train import optim
     from avjepa_tpu_torch.train.step import StepConfig, train_step
 
-    mesh = dist.make_mesh(data, fsdp_, 1, "cpu")
+    mesh = dist.make_mesh(data, fsdp_, tensor_, "cpu")
     out = {}
     for case in cases:
-        state = build_state(torch.load(os.path.join(outdir, "weights.pt")), mesh.device_mesh)
+        state = build_state(torch.load(os.path.join(outdir, "weights.pt")), mesh)
         models = {"encoder": state.encoder, "predictor": state.predictor,
                   "target_encoder": state.target_encoder}
         z = np.load(os.path.join(outdir, f"step_{case}.npz"))
-        losses, reductions, shards, digests, counts = [], [], [], [], []
+        losses, reductions, shards, digests, counts, tensor_counts = [], [], [], [], [], []
         for i in range(z["video"].shape[0]):
-            inputs = local_half({k: z[k][i] for k in z.files}, rank, world)
+            inputs = local_half({k: z[k][i] for k in z.files}, mesh.batch_rank, mesh.batch)
             counts.append(inputs["pred_masks"].flatten(1).sum(1).tolist())
             before = dict(dist.REDUCTIONS)
             m = train_step(state, optim.ScheduleConfig(**SCHED), StepConfig(**STEP), **inputs)
             reductions.append(dist.REDUCTIONS["grads"] - before.get("grads", 0))
             shards.append(dist.REDUCTIONS["shards"] - before.get("shards", 0))
+            tensor_counts.append([dist.REDUCTIONS[k] - before.get(k, 0)
+                                  for k in ("tensor", "tensor_shards")])
             losses.append(m["loss"])
             digests.append(digest(models.values()))
             if i == 0:
                 out[f"{case}_first"] = {k: m[k] for k in ("loss", "enc_grad_norm",
                                                           "pred_grad_norm", "enc_grad_avg",
                                                           "pred_grad_avg", "opt_mu_abs")}
-                grads = {f"{name}/{k}": fsdp.full_tensor(p.grad).numpy()
+                grads = {f"{name}/{k}": whole(p.grad, tensor.splits(models[name]).get(k)).numpy()
                          for name in ("encoder", "predictor")
                          for k, p in models[name].named_parameters()}
                 if rank == 0:
@@ -245,7 +272,11 @@ def run_steps(rank: int, world: int, outdir: str, prefix: str = "", data: int = 
         if rank == 0:
             np.savez(os.path.join(outdir, f"{prefix}weights_{case}.npz"), **weights)
         out[case] = {"losses": losses, "reductions": reductions, "shard_reductions": shards,
-                     "digests": digests, "pred_counts": counts, "sharding": sharding(models)}
+                     "tensor_reductions": tensor_counts, "digests": digests,
+                     "pred_counts": counts, "sharding": sharding(models)}
+    out["mesh"] = {"batch": mesh.batch, "batch_rank": mesh.batch_rank,
+                   "tensor_index": None if mesh.tensor_group is None else mesh.tensor_group.index,
+                   "batch_index": None if mesh.batch_group is None else mesh.batch_group.index}
     return out
 
 
@@ -259,6 +290,70 @@ def run_fsdp_step(rank: int, world: int, outdir: str) -> dict:
 
 def run_hsdp_step(rank: int, world: int, outdir: str) -> dict:
     return run_steps(rank, world, outdir, "hsdp_", data=2, fsdp_=2, cases=("unequal",))
+
+
+def run_tp_step(rank: int, world: int, outdir: str) -> dict:
+    out = run_steps(rank, world, outdir, "tp_", data=1, cases=("unequal",), tensor_=2)
+    out["block"] = tensor_block(rank)
+    return out
+
+
+def run_tp_fsdp_step(rank: int, world: int, outdir: str) -> dict:
+    return run_steps(rank, world, outdir, "tp_fsdp_", data=1, fsdp_=2, cases=("unequal",),
+                     tensor_=2)
+
+
+def tensor_block(rank: int) -> dict:
+    """A tiny encoder (2 x 128, 4 heads of 32: the packed path, whose 2
+    local heads take it too) with remat, cut over this two-rank tensor
+    group, against the same encoder unsharded in this process: the output
+    and every parameter's whole gradient (max abs difference), and the
+    packed forward's calls (the plain version's) in the sharded backward."""
+    import torch
+
+    from avjepa_tpu_torch.layout import TokenLayout
+    from avjepa_tpu_torch.models.encoder import Encoder
+    from avjepa_tpu_torch.models.factory import init_encoder_params
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.parallel import dist, tensor
+
+    layout = TokenLayout(num_frames=4, crop_size=32, patch_size=16, tubelet_size=2)
+    kw = dict(embed_dim=128, depth=2, num_heads=4, attn_impl="flash", gelu="tanh", remat=True)
+    plain, cut = Encoder(layout, **kw), Encoder(layout, **kw)
+    init_encoder_params(plain, 5)
+    cut.load_state_dict(plain.state_dict())
+    mesh = dist.make_mesh(1, 1, 2, "cpu")
+    tensor.shard_models(mesh.tensor_group, cut)
+    gen = torch.Generator().manual_seed(6)
+    video = torch.randn(2, 4, 32, 32, 3, generator=gen)
+    audio = torch.randn(2, 128, 192, 1, generator=gen)
+    key_mask = torch.rand(2, layout.num_tokens, generator=gen) < 0.8
+    probe = torch.randn(2, layout.num_tokens, 128, generator=gen)
+    outs = []
+    for enc in (plain, cut):
+        y = enc(video, audio, key_mask=key_mask)
+        (y.float() * probe).mean().backward()
+        outs.append(y.detach())
+    splits = tensor.splits(cut)
+    grads = {k: (whole(p.grad, splits.get(k)) - dict(plain.named_parameters())[k].grad)
+             .abs().max().item() for k, p in cut.named_parameters()}
+    calls = {"n": 0}
+    ref = fa.flash_attention_qkv_ref
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return ref(*a, **k)
+
+    fa.flash_attention_qkv_ref = counted
+    try:
+        (cut(video, audio, key_mask=key_mask).float() * probe).mean().backward()
+    finally:
+        fa.flash_attention_qkv_ref = ref
+    return {"out_err": (outs[0] - outs[1]).abs().max().item(),
+            "out_max": outs[0].abs().max().item(), "grad_err": grads,
+            "grad_max": {k: p.grad.abs().max().item() for k, p in plain.named_parameters()},
+            "cut": sorted(splits), "local_qkv": list(cut.blocks[0].attn.qkv.weight.shape),
+            "packed_calls": calls["n"]}
 
 
 def run_info(rank: int, world: int, outdir: str) -> dict:
@@ -441,11 +536,50 @@ def run_fsdp_avprediction(rank: int, world: int, outdir: str) -> dict:
                                   "predictor": handles.state.predictor, "probe": state.probe})}
 
 
+def run_tp_pretrain(rank: int, world: int, outdir: str) -> dict:
+    """``pretrain``'s first run under ``mesh_tensor: 2`` (both ranks load
+    the same batch of 2), then ``pretrain``'s step-2 checkpoint (written at
+    ``mesh_data: 2``) resumed under it for one step."""
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import pretrain
+
+    folder = os.path.join(outdir, "pretrain-tp")
+    d = pretrain_cfg(folder, tpu={"mesh_tensor": 2})
+    tag = d["logging"]["write_tag"]
+    pretrain.run(load_config(d), device="cpu")
+    losses = read_losses(os.path.join(folder, f"{tag}_r{rank}.csv"))
+    resume = os.path.join(outdir, "pretrain-tp-resume")
+    if rank == 0:
+        os.makedirs(resume, exist_ok=True)
+        shutil.copy(os.path.join(outdir, "pretrain", "step2.pth.tar"),
+                    os.path.join(resume, f"{tag}-latest.pth.tar"))
+    d = pretrain_cfg(resume, tpu={"mesh_tensor": 2}, optimization={"epochs": 2},
+                     meta={"load_checkpoint": True})
+    summary = pretrain.run(load_config(d), max_steps=1, device="cpu")
+    return {"losses": losses, "summary": summary,
+            "resume_losses": read_losses(os.path.join(resume, f"{tag}_r{rank}.csv"))}
+
+
+def run_tp_avprediction(rank: int, world: int, outdir: str) -> dict:
+    """``avprediction``'s probe steps under ``mesh_tensor: 2`` (the frozen
+    models cut, the probe replicated), on ``pretrain``'s checkpoint."""
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.train import avprediction
+
+    d = prediction_cfg(os.path.join(outdir, "avprediction-tp"), pretrain_checkpoint(outdir))
+    d["tpu"]["mesh_tensor"] = 2
+    avprediction.run(load_config(d), device="cpu")
+    tag = d["logging"]["write_tag"]
+    return {"losses": read_losses(os.path.join(d["logging"]["folder"], f"{tag}_probe_r{rank}.csv"))}
+
+
 MODES = {"step": run_step, "info": run_info, "pretrain": run_pretrain,
          "preempt": run_preempt, "eval": run_eval, "extract": run_extract,
          "avprediction": run_avprediction, "fsdp_step": run_fsdp_step,
          "hsdp_step": run_hsdp_step, "fsdp_pretrain": run_fsdp_pretrain,
-         "fsdp_vjepa": run_fsdp_vjepa, "fsdp_avprediction": run_fsdp_avprediction}
+         "fsdp_vjepa": run_fsdp_vjepa, "fsdp_avprediction": run_fsdp_avprediction,
+         "tp_step": run_tp_step, "tp_fsdp_step": run_tp_fsdp_step,
+         "tp_pretrain": run_tp_pretrain, "tp_avprediction": run_tp_avprediction}
 
 
 def main():

@@ -1,8 +1,8 @@
 """ViT-H (configs/pretrain/vith16.yaml) sharded by avjepa_tpu_torch over
-several GPUs with NCCL: the fsdp axis measured where chip_smoke.py, which
-needs one card, cannot.
+several GPUs with NCCL: the fsdp and tensor axes measured where
+chip_smoke.py, which needs one card, cannot.
 
-    python tools/torch_fsdp_cards.py [--cards 4] [--steps 6] [--compare-root DIR]
+    python tools/torch_fsdp_cards.py [--cards 4] [--steps 6] [--compare-root DIR] [--tensor]
 
 from the root of a checkout, on a machine with ``--cards`` GPUs. It builds
 the kernels and runs chip_smoke.py's phase 13 (a) (the unsharded step on one
@@ -12,6 +12,8 @@ card, which also saves the batch); then, for ``tpu.mesh_fsdp: cards`` and a
 (step ms from the CSV, each rank's peak memory from its report), and the
 mesh's ranks on (a)'s batch: two steps beside the unsharded first step, each
 rank's peak memory, and one profiled step's NCCL share of the device time.
+With ``--tensor`` the meshes are fsdp 2 x tensor (cards / 2) and tensor
+``cards`` (``tpu.mesh_tensor``) instead, at the same global batch of 24.
 With ``--compare-root`` (another checkout of the repo, with the same kernel
 sources), the main_distributed runs are also made from that tree, in the
 order other, this, this, other for the fsdp mesh and other, this for the
@@ -35,14 +37,16 @@ import chip_smoke as cs  # noqa: E402
 
 
 def run_main_distributed(workdir: str, cards: int, data: int, fsdp_: int, steps: int,
-                         root: str = ROOT, label: str = "this") -> list:
-    """``steps`` steps of vith16.yaml at batch 24 / cards a rank through
-    main_distributed run from the checkout ``root``; prints and returns the
-    step ms of the CSV (host clock to each step's sync)."""
+                         root: str = ROOT, label: str = "this", tensor_: int = 1) -> list:
+    """``steps`` steps of vith16.yaml at a global batch of 24 (24 / (data x
+    fsdp_) a rank) through main_distributed run from the checkout ``root``;
+    prints and returns the step ms of the CSV (host clock to each step's
+    sync)."""
     import yaml
 
-    name = f"{label}-{data}x{fsdp_}-{len(os.listdir(workdir))}"
-    d = cs._vith_cfg(workdir, 24 // cards, tpu={"mesh_data": data, "mesh_fsdp": fsdp_},
+    name = f"{label}-{data}x{fsdp_}x{tensor_}-{len(os.listdir(workdir))}"
+    d = cs._vith_cfg(workdir, 24 // (data * fsdp_), tpu={"mesh_data": data, "mesh_fsdp": fsdp_,
+                                                         "mesh_tensor": tensor_},
                      optimization={"ipe": steps, "epochs": 1})
     d["logging"]["folder"] = os.path.join(workdir, f"vith-{name}")
     path = os.path.join(workdir, f"vith-{name}.yaml")
@@ -66,24 +70,31 @@ def run_main_distributed(workdir: str, cards: int, data: int, fsdp_: int, steps:
         with open(os.path.join(report_dir, f"report_r{r}.json")) as f:
             peaks.append(json.load(f)["peak_gib"])
     ms = [float(row["step-time-ms"]) for row in rows]
-    print(f"vith16 {data}x{fsdp_} ({label} tree) through main_distributed on {cards} cards: "
+    print(f"vith16 {data}x{fsdp_}x{tensor_} ({label} tree) through main_distributed on {cards} "
+          f"cards: "
           f"step ms {ms} (CSV, host clock to the step's sync; median of steps 2-{len(ms)} "
           f"{cs._median_step_ms(rows):.1f}), losses {[float(row['loss']) for row in rows]}, "
           f"peak GiB by rank {[round(p, 2) for p in peaks]}; {cs.card_line()}", flush=True)
     return ms
 
 
-def run_ranks(workdir: str, cards: int, data: int, fsdp_: int, vith: dict) -> None:
+def run_ranks(workdir: str, cards: int, data: int, fsdp_: int, vith: dict,
+              tensor_: int = 1) -> None:
     """The mesh's ranks on phase 13 (a)'s batch (``chip_smoke.fsdp_rank``):
     two steps beside the unsharded first step, then a profiled step."""
-    ranks = cs._spawn_fsdp_ranks(workdir, cards, data, fsdp_, profile=True)
+    ranks = cs._spawn_fsdp_ranks(workdir, cards, data, fsdp_, profile=True, tensor_=tensor_)
     r0 = ranks[0]
-    if any(r["steps"][-1]["digest"] != r0["steps"][-1]["digest"] for r in ranks):
-        raise AssertionError(f"{data}x{fsdp_}: the ranks' weights differ")
+    # a tensor group's ranks hold different pieces: the same losses, and the
+    # same weights among the ranks of one tensor index
+    if any(r["steps"][-1]["loss"] != r0["steps"][-1]["loss"] for r in ranks) or any(
+            r["steps"][-1]["digest"] != ranks[i % tensor_]["steps"][-1]["digest"]
+            for i, r in enumerate(ranks)):
+        raise AssertionError(f"{data}x{fsdp_}x{tensor_}: the ranks' losses or weights differ")
     want = vith["first"]
     rel = {k: abs(r0["steps"][0][k] - want[k]) / abs(want[k])
            for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
-    print(f"vith16 {data}x{fsdp_} ranks: steps {[step['ms'] for step in r0['steps']]} ms, "
+    print(f"vith16 {data}x{fsdp_}x{tensor_} ranks: steps {[step['ms'] for step in r0['steps']]} "
+          f"ms, tensor all-reduces a step {[step['tensor_reductions'] for step in r0['steps']]}, "
           f"losses {[step['loss'] for step in r0['steps']]}, enc grad norms "
           f"{[step['enc_grad_norm'] for step in r0['steps']]}; step 1 against the unsharded "
           f"step at batch 24: rel {', '.join(f'{k} {v:.2e}' for k, v in rel.items())}; peak "
@@ -100,6 +111,8 @@ def main(argv=None) -> None:
     parser.add_argument("--steps", type=int, default=6)
     parser.add_argument("--compare-root", type=str, default=None,
                         help="another checkout whose runs are timed beside this one's")
+    parser.add_argument("--tensor", action="store_true",
+                        help="the tensor axis instead: fsdp 2 x tensor cards/2, and tensor cards")
     args = parser.parse_args(argv)
     import torch
 
@@ -117,13 +130,17 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory(prefix="fsdp_cards_") as workdir:
         vith = cs.run_vith(workdir)
         other, this = (args.compare_root, "other"), (ROOT, "this")
-        for data, fsdp_ in ((1, args.cards), (2, args.cards // 2)):
+        meshes = ((1, args.cards, 1), (2, args.cards // 2, 1))
+        if args.tensor:
+            meshes = ((1, 2, args.cards // 2), (1, 1, args.cards))
+        for data, fsdp_, tensor_ in meshes:
             order = [this]
             if args.compare_root:
                 order = [other, this, this, other] if data == 1 else [other, this]
             for root, label in order:
-                run_main_distributed(workdir, args.cards, data, fsdp_, args.steps, root, label)
-            run_ranks(workdir, args.cards, data, fsdp_, vith)
+                run_main_distributed(workdir, args.cards, data, fsdp_, args.steps, root, label,
+                                     tensor_)
+            run_ranks(workdir, args.cards, data, fsdp_, vith, tensor_)
     print(cs.card_line())
 
 
