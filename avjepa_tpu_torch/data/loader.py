@@ -1,13 +1,19 @@
-"""Host-side batching without JAX: a sharded index sampler and a threaded
-batch loader.
+"""Host-side batching without JAX: a sharded index sampler and a batch
+loader over a pool of threads or processes.
 
 Counterpart of ``avjepa_tpu/data/loader.py``. The sampler keeps that
 module's semantics; the number of shards and this process's shard are given
 explicitly (one process drives one GPU). The loader decodes samples in a
-thread pool, retries a failed decode on a resampled index, calls the mask
-collator once per batch in batch order on its producer thread (as
-``JepaLoader._assemble`` does), and keeps a bounded queue of batches ahead of
-the consumer.
+thread pool, or with ``use_processes`` in a process pool (``forkserver``, as
+the JAX loader: a forked copy of a process that holds a CUDA context and
+torch's threads is unsafe), retries a failed decode on a resampled index,
+calls the mask collator once per batch in batch order on its producer thread
+in this process (as ``JepaLoader._assemble`` does), and keeps a bounded queue
+of batches ahead of the consumer. A process worker holds its own copy of the
+dataset, shipped once by the pool's initializer, so each task carries the
+loader's epoch and the resample flag; a script that builds a process loader
+needs an ``if __name__ == "__main__":`` guard, since ``forkserver`` imports
+the main module.
 
 The evals' exact-validation path is the JAX module's too: with
 ``retry_resample=False`` a failed sample is retried on its own index and then
@@ -19,10 +25,12 @@ top-1 counts each sample once and leaves a failed one out.
 
 from __future__ import annotations
 
+import logging
+import multiprocessing
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
-import logging
+import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
@@ -126,6 +134,24 @@ def fetch_with_retry(dataset, idx: int, resample: bool = True):
     raise RuntimeError("persistent decode failure")
 
 
+# a process worker's copy of the dataset, set once by the pool initializer (a
+# bound method as the task would drag the loader's pool and locks along)
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _fetch_worker(idx: int, epoch: int, resample: bool):
+    # the parent's set_epoch never reaches this copy: the epoch rides in with
+    # each task, so that every epoch draws its own crops
+    if hasattr(_WORKER_DATASET, "set_epoch"):
+        _WORKER_DATASET.set_epoch(epoch)
+    return fetch_with_retry(_WORKER_DATASET, idx, resample)
+
+
 def exact_val_collate(collate):
     """Wrap ``collate`` for a ``retry_resample=False`` loader: FetchFailure
     slots get a copy of a good sample of the batch (the shapes stay fixed)
@@ -171,38 +197,65 @@ def collate_av(samples) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
 class BatchLoader:
     """Iterates collated batches (``collate``'s output; by default ``(video,
     audio, labels)``), plus the mask sets ``mask_collator(batch_size)`` when
-    one is given, decoding ahead in ``num_workers`` threads with at most
-    ``prefetch`` batches waiting. ``retry_resample=False`` hands failed
-    samples to ``collate`` as ``FetchFailure`` (see ``exact_val_collate``).
+    one is given, decoding ahead in ``num_workers`` threads (or, with
+    ``use_processes``, worker processes) with at most ``prefetch`` batches
+    waiting. ``retry_resample=False`` hands failed samples to ``collate`` as
+    ``FetchFailure`` (see ``exact_val_collate``). ``stats`` sums the
+    producer's seconds in fetch, collate and masks over the batches it made.
     ``close()`` stops the pool."""
 
     def __init__(self, dataset, sampler: ShardedSampler, num_workers: int = 4,
                  prefetch: int = 2, mask_collator=None, collate=collate_av,
-                 retry_resample: bool = True):
+                 retry_resample: bool = True, use_processes: bool = False):
         self.dataset = dataset
         self.sampler = sampler
         self.prefetch = prefetch
         self.mask_collator = mask_collator
         self.collate = collate
         self.retry_resample = retry_resample
-        self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+        self.use_processes = use_processes
+        self.epoch = 0
+        self.stats = {"batches": 0, "fetch_s": 0.0, "collate_s": 0.0, "masks_s": 0.0}
+        if use_processes:
+            self._pool = ProcessPoolExecutor(
+                max_workers=max(1, num_workers),
+                mp_context=multiprocessing.get_context("forkserver"),
+                initializer=_init_worker, initargs=(dataset,))
+        else:
+            self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
 
     def set_epoch(self, epoch: int) -> None:
-        """Reshuffle, and salt the dataset's per-sample augmentation."""
+        """Reshuffle, and salt the dataset's per-sample augmentation (a
+        process worker's copy gets the epoch with each task)."""
+        self.epoch = epoch
         self.sampler.set_epoch(epoch)
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
     def close(self) -> None:
+        """Cancel what is queued and join the workers."""
         self._pool.shutdown(wait=True, cancel_futures=True)
 
     def _assemble(self, indices: np.ndarray):
-        samples = list(self._pool.map(
-            lambda i: fetch_with_retry(self.dataset, i, self.retry_resample), indices))
+        t0 = time.perf_counter()
+        if self.use_processes:
+            n = len(indices)
+            samples = list(self._pool.map(_fetch_worker, [int(i) for i in indices],
+                                          [self.epoch] * n, [self.retry_resample] * n))
+        else:
+            samples = list(self._pool.map(
+                lambda i: fetch_with_retry(self.dataset, i, self.retry_resample), indices))
+        t1 = time.perf_counter()
         batch = self.collate(samples)
-        if self.mask_collator is None:
-            return batch
-        return (*batch, self.mask_collator(len(indices)))
+        t2 = time.perf_counter()
+        if self.mask_collator is not None:
+            batch = (*batch, self.mask_collator(len(indices)))
+        stats = self.stats
+        stats["batches"] += 1
+        stats["fetch_s"] += t1 - t0
+        stats["collate_s"] += t2 - t1
+        stats["masks_s"] += time.perf_counter() - t2
+        return batch
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

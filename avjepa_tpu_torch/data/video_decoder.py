@@ -60,6 +60,12 @@ def _load_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int, ctypes.c_int,
         ]
         lib.avdec_crop_resize_rgb.restype = ctypes.c_int
+    if hasattr(lib, "avdec_write_test_video"):
+        lib.avdec_write_test_video.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_int,
+        ]
+        lib.avdec_write_test_video.restype = ctypes.c_int
     _LIB = lib
     return lib
 
@@ -149,3 +155,48 @@ class VideoFile:
             ctypes.byref(sr),
         )
         return out[: int(got)], int(sr.value)
+
+
+def write_test_video(path: str, n_frames: int = 64, w: int = 128, h: int = 96,
+                     fps: float = 25.0, with_audio: bool = True) -> None:
+    """Encode a synthetic test clip (used by tests; needs the native lib)."""
+    lib = _load_lib()
+    rc = lib.avdec_write_test_video(
+        path.encode(), n_frames, w, h, fps, 1 if with_audio else 0
+    )
+    if rc != 0:
+        raise IOError(f"test video write failed ({rc})")
+
+
+def write_av_clip(path: str, frames: "np.ndarray", fps: float = 25.0,
+                  pcm: "np.ndarray | None" = None,
+                  sample_rate: int = 44100) -> None:
+    """Encode caller-provided content: ``frames`` [T, H, W, 3] uint8 RGB and
+    optional mono ``pcm`` f32 in [-1, 1] -> AVI (MPEG4 + PCM_S16LE).
+
+    The content-controllable sibling of :func:`write_test_video`; chain/test
+    tooling uses it to author media with known class statistics (motion
+    direction, tone frequency) so downstream evals can demonstrate learning
+    against a random-encoder control."""
+    lib = _load_lib()
+    frames = np.ascontiguousarray(frames, np.uint8)
+    assert frames.ndim == 4 and frames.shape[-1] == 3, frames.shape
+    t, h, w, _ = frames.shape
+    if pcm is not None:
+        pcm = np.ascontiguousarray(pcm, np.float32)
+        pcm_ptr = pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        n_samples = len(pcm)
+    else:
+        pcm_ptr, n_samples = None, 0
+    lib.avdec_encode_av.restype = ctypes.c_int
+    lib.avdec_encode_av.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
+    ]
+    rc = lib.avdec_encode_av(
+        path.encode(), frames.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+        t, w, h, fps, pcm_ptr, n_samples, sample_rate,
+    )
+    if rc != 0:
+        raise IOError(f"av clip encode failed ({rc})")

@@ -87,7 +87,8 @@ def build_eval_loader(cfg: ExperimentConfig, layout, seed_salt: int = 101,
     sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=False, seed=seed,
                              num_shards=shards, shard_index=index)
     return BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
-                       mask_collator=collator)
+                       mask_collator=collator,
+                       use_processes=cfg.data.source != "synthetic" and cfg.data.num_workers > 1)
 
 
 def _psnr(mse: float, rng: float) -> float:

@@ -4,8 +4,10 @@ Counterpart of ``avjepa_tpu/models/encoder.py``: AV (video tokens, then
 audio tokens), video-only (``layout.audio_enabled`` False) and image mode
 (``layout.num_frames`` 1: a [B, H, W, C] image, the 2-D patch embed and
 sincos table), dense with an optional ``[B, N]`` key mask, or compacted to
-the tokens of ``gather_idx``. The blocks are an ``nn.ModuleList`` (the JAX
-package scans one stacked block). Not ported yet: pos-embed interpolation.
+the tokens of ``gather_idx``. A video (or image) at another size than the
+layout's gets its pos-embed resized to its grid (``models/pos_embed.py``).
+The blocks are an ``nn.ModuleList`` (the JAX package scans one stacked
+block).
 """
 
 from __future__ import annotations
@@ -76,12 +78,19 @@ class Encoder(nn.Module):
         Returns [B, N, D] (or [B, K, D]) in ``self.dtype``; rows at masked
         positions are finite garbage for callers to mask."""
         x = self.patch_embed.proj(video.to(self.dtype))
-        if x.shape[1] != self.pos_embed_v.shape[0]:
-            raise NotImplementedError(
-                f"video gives {x.shape[1]} tokens, the layout {self.pos_embed_v.shape[0]}: "
-                "pos-embed interpolation is not ported yet"
-            )
-        x = x + self.pos_embed_v.to(self.dtype)
+        vpe = self.pos_embed_v.to(self.dtype)
+        if x.shape[1] != vpe.shape[0]:
+            # off-native resolution: the table, cast first, resized to the
+            # input's grid (trilinear for video, bicubic for images)
+            lo = self.layout
+            if lo.num_frames > 1:
+                grid = (video.shape[1] // lo.tubelet_size, video.shape[2] // lo.patch_size,
+                        video.shape[3] // lo.patch_size)
+                vpe = pe.interpolate_video_pos_embed(vpe, lo.video_grid, grid)
+            else:
+                grid = (video.shape[1] // lo.patch_size, video.shape[2] // lo.patch_size)
+                vpe = pe.interpolate_image_pos_embed(vpe, (lo.h_grid, lo.w_grid), grid)
+        x = x + vpe
         if self.layout.audio_enabled:
             if audio is None:
                 raise ValueError("layout has audio enabled but no audio given")

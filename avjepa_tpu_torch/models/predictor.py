@@ -2,7 +2,8 @@
 
 Counterpart of ``avjepa_tpu/models/predictor.py:52-202`` (the reference's
 AudioVisionTransformerPredictor and the video-only
-VisionTransformerPredictor). It runs over the full token raster: a position
+VisionTransformerPredictor), for video or, at one frame, an image (the
+2-D sincos table). It runs over the full token raster: a position
 is a context token (the encoder output projected to predictor width), a
 prediction target, or invalid (excluded from attention). A target position
 holds the learnable mask token of its mask config, or, with
@@ -57,8 +58,6 @@ class Predictor(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if layout.num_frames <= 1:
-            raise NotImplementedError("image mode is not ported yet (see ROADMAP.md)")
         dp = predictor_embed_dim
         self.layout = layout
         self.embed_dim = embed_dim
@@ -87,7 +86,10 @@ class Predictor(nn.Module):
         self.predictor_proj = nn.Linear(dp, embed_dim)
         # the tensor group, when predictor_proj is row-parallel (parallel/tensor.py)
         self.tensor = None
-        vpe = pe.sincos_3d(dp, layout.h_grid, layout.t_grid, uniform_power=uniform_power)
+        if layout.num_frames > 1:
+            vpe = pe.sincos_3d(dp, layout.h_grid, layout.t_grid, uniform_power=uniform_power)
+        else:  # image mode (a layout of one frame and tubelet_size 1)
+            vpe = pe.sincos_2d(dp, layout.h_grid)
         self.register_buffer("pos_embed_v", torch.from_numpy(vpe).float(), persistent=False)
         if layout.audio_enabled:
             ape = pe.sincos_2d_rect(dp, layout.ha_grid, layout.wa_grid)

@@ -20,9 +20,10 @@ Design:
     own ``_r{rank}`` files: the ranks' files hold every row once;
   - the sampler wrap-pads the final partial batch so every batch has the
     same shape; rows are deduplicated by id on write;
-  - host ingest decodes in a thread pool ahead of the device, with a
-    deterministic transform (short-side resize, fixed crop, normalize,
-    uniform clip window) so embeddings are reproducible run to run.
+  - host ingest decodes ahead of the device, media files in worker
+    processes and synthetic clips in threads, with a deterministic
+    transform (short-side resize, fixed crop, normalize, uniform clip
+    window) so embeddings are reproducible run to run.
 
 Outputs under ``extract.output`` (default <logging.folder>/<tag>-features),
 one set a rank:
@@ -111,6 +112,24 @@ def _build_dataset(cfg: ExperimentConfig, layout):
     return ds, list(ds.paths), np.asarray(ds.labels)
 
 
+def build_loader(cfg: ExperimentConfig, view: _IndexedView, rank: int = 0,
+                 world: int = 1) -> BatchLoader:
+    """This rank's loader over ``view``: its shard of the unshuffled rows,
+    wrap-padded to whole batches; media files decode in worker processes,
+    synthetic clips in threads (the JAX app's rule)."""
+    sampler = ShardedSampler(
+        dataset_len=len(view),
+        batch_size=cfg.data.batch_size,
+        shuffle=False,
+        seed=cfg.meta.seed,
+        num_shards=world,
+        shard_index=rank,
+        drop_last=False,
+    )
+    return BatchLoader(view, sampler, num_workers=cfg.data.num_workers,
+                       use_processes=cfg.data.source != "synthetic" and cfg.data.num_workers > 1)
+
+
 def build_encoder(cfg: ExperimentConfig, device: torch.device) -> Encoder:
     """The frozen encoder of the config on ``device``: read from
     ``meta.read_checkpoint``, or random from ``meta.seed`` where
@@ -176,18 +195,8 @@ def main(args, resume_preempt: bool = False, device: str | torch.device = "cuda"
     dim = VIT_SPECS[cfg.model.model_name].embed_dim
 
     ds, paths, labels = _build_dataset(cfg, layout)
-    view = _IndexedView(ds, ex.limit)
-    n_total = len(view)
-    sampler = ShardedSampler(
-        dataset_len=n_total,
-        batch_size=cfg.data.batch_size,
-        shuffle=False,
-        seed=cfg.meta.seed,
-        num_shards=world,
-        shard_index=rank,
-        drop_last=False,
-    )
-    loader = BatchLoader(view, sampler, num_workers=cfg.data.num_workers)
+    loader = build_loader(cfg, _IndexedView(ds, ex.limit), rank, world)
+    n_total = len(loader.dataset)
 
     out_dir = ex.output or os.path.join(
         cfg.logging.folder, f"{cfg.logging.write_tag}-features"

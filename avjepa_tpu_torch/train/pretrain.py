@@ -195,8 +195,11 @@ def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
     sampler = ShardedSampler(len(dataset), cfg.data.batch_size, shuffle=True,
                              seed=cfg.meta.seed, num_shards=mesh.batch,
                              shard_index=mesh.batch_rank, weights=weights)
+    # media files decode in worker processes, synthetic clips in threads (the
+    # JAX app's rule)
     loader = BatchLoader(dataset, sampler, num_workers=cfg.data.num_workers,
-                         mask_collator=collator)
+                         mask_collator=collator,
+                         use_processes=cfg.data.source != "synthetic" and cfg.data.num_workers > 1)
     return TrainHandles(cfg, device, state, sched, step_cfg, loader, collator)
 
 

@@ -91,8 +91,21 @@ exits non-zero:
      steps against the unsharded step in this process on the same rows of
      (a)'s batch (losses, grad norms, each rank's pieces of checked
      weights), the packed kernels on 8 local heads, one K1 launch a layer,
-     the tensor all-reduces a step, each rank's peak memory and step ms.
-Every run of phases 4-5, 9, 11, 12, 13 and 14 is driven with the kernels' launch
+     the tensor all-reduces a step, each rank's peak memory and step ms;
+ 15. (run after phase 7) ingest and the model modes no app reaches: (a) the
+     ViT-L AV step (av-vitl16.yaml) from fresh handles for 6 steps, its
+     loader at 12 workers once with threads (the app's rule for synthetic
+     clips) and once with worker processes: the batches and losses of the
+     two equal to the bit, K1/K2 launches, each mode's clips/s after the
+     first step, the consumer's wait, the producer's fetch, collate and
+     mask ms and the H2D copy; (b) the extract app's loader alone
+     (vitl16_extract.yaml's view) with 12 threads and 12 processes,
+     batches/s, and no worker initialising CUDA; (c) the ViT-L AV encoder
+     fed 16 x 256^2 (its pos-embed resized to 2048 tokens, plus 96 audio)
+     through K1 against the plain attention; (d) the predictor in image
+     mode (12 x 384, 196 tokens, batch 24) forward and backward through
+     K1/K2 against the plain attention.
+Every run of phases 4-5, 9, 11, 12, 13, 14 and 15 is driven with the kernels' launch
 counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
@@ -2504,6 +2517,301 @@ def run_vith_tensor(workdir: str) -> dict:
     return {"ranks": ranks, "ref": ref_steps, "ref_peak_gib": ref_peak}
 
 
+# phase 15: the ViT-L AV step fed by the loader's threads and by its worker
+# processes, the loader alone on the extract app's view, the encoder at an
+# off-native input (its pos-embed resized) and the predictor in image mode
+INGEST_STEPS = 6
+INGEST_WORKERS = 12  # av-vitl16.yaml's and vitl16_extract.yaml's num_workers
+# the extract batch's device time on an H100 80GB HBM3 at 700 W (PERF.md
+# section 5), for the loader's bar
+EXTRACT_DEVICE_MS = 80.1
+
+
+def _batch_digest(batch) -> str:
+    """sha256 over a host batch's video, audio, labels and every mask set's
+    arrays."""
+    import hashlib
+
+    import numpy as np
+
+    video, audio, labels, masks = batch
+    h = hashlib.sha256()
+    for a in (video, audio, labels):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for m in masks:
+        for a in (m.enc, m.pred, m.enc_idx, m.union_idx):
+            if a is not None:
+                h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _worker_state() -> dict:
+    """Run in a loader worker: whether torch is imported there, and whether
+    it initialised CUDA or loaded the kernels' library."""
+    torch = sys.modules.get("torch")
+    build = sys.modules.get("avjepa_tpu_torch.ops._build")
+    return {"torch": torch is not None,
+            "cuda_initialized": bool(torch and torch.cuda.is_initialized()),
+            "kernels_loaded": bool(build and build.load_library.cache_info().currsize)}
+
+
+def _ingest_steps(workdir: str, processes: bool) -> dict:
+    """av-vitl16.yaml through pretrain.setup from fresh handles, its loader
+    over the synthetic clips at 12 workers: the threads the app's rule picks
+    (``processes`` False) or a process loader built over the same sampler
+    and collator. INGEST_STEPS steps as the app's loop runs them: the batch
+    waited for, copied to the device (timed to a sync), then the step.
+    Returns the batches' digests, losses, launches and times."""
+    import numpy as np
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.data.loader import BatchLoader
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+
+    cfg = load_config(_pretrain_cfg("av-vitl16.yaml", workdir,
+                                    data={"num_workers": INGEST_WORKERS}))
+    h = pretrain.setup(cfg, torch.device("cuda", 0))
+    if h.loader.use_processes:
+        raise AssertionError("the app's rule picked processes for synthetic clips")
+    loader = h.loader
+    if processes:
+        loader.close()
+        loader = BatchLoader(h.loader.dataset, h.loader.sampler, num_workers=INGEST_WORKERS,
+                             mask_collator=h.mask_collator, use_processes=True)
+    batches, losses, wait, h2d, step, ends = [], [], [], [], [], []
+    loader.set_epoch(0)
+    it = iter(loader)
+    fa.reset_launches()
+    try:
+        for _ in range(INGEST_STEPS):
+            t0 = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            if not batches:
+                first = dict(loader.stats)  # the pool's start-up is in these batches
+            video, audio, _, masks = batch
+            inputs = h.to_device(video, audio, masks)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            losses.append(train_step(h.state, h.sched, h.step_cfg, **inputs,
+                                     full_metrics=False)["loss"])
+            ends.append(time.perf_counter())
+            wait.append(1e3 * (t1 - t0))
+            h2d.append(1e3 * (t2 - t1))
+            step.append(1e3 * (ends[-1] - t2))
+            batches.append(batch)
+    finally:
+        it.close()
+        stats = dict(loader.stats)
+        loader.close()
+    launches = dict(fa.LAUNCHES)
+    b, later = cfg.data.batch_size, INGEST_STEPS - 1
+    n = max(stats["batches"] - first["batches"], 1)
+    return {
+        "digests": [_batch_digest(x) for x in batches], "losses": losses,
+        "launches": launches, "clips_per_s": b * later / (ends[-1] - ends[0]),
+        "wait_ms": float(np.mean(wait[1:])), "h2d_ms": float(np.mean(h2d[1:])),
+        "step_ms": float(np.mean(step[1:])),
+        "first_wait_ms": wait[0],
+        "producer_ms": {k: 1e3 * (stats[f"{k}_s"] - first[f"{k}_s"]) / n
+                        for k in ("fetch", "collate", "masks")},
+        "batches_timed": n,
+    }
+
+
+def run_ingest(workdir: str) -> dict:
+    """Phase 15 (a): the ViT-L AV step fed by threads and by processes,
+    INGEST_STEPS steps each on the same sampler seed and collator counter:
+    every batch and every loss equal to the bit between the two, one K1 a
+    layer and one K2 a trained layer a step; each mode's clips/s after the
+    first step (host clock), the consumer's wait, the producer's stages and
+    the H2D copy."""
+    t_phase = time.perf_counter()
+    print(f"ingest: host os.cpu_count() {os.cpu_count()}, sched_getaffinity "
+          f"{len(os.sched_getaffinity(0))} cores")
+    runs = {}
+    for mode in ("threads", "processes"):
+        runs[mode] = r = _ingest_steps(workdir, mode == "processes")
+        want = {"fwd_packed": INGEST_STEPS * VITL_K1_A_STEP, "bwd_packed": INGEST_STEPS * 60,
+                "fwd": 0, "bwd": 0}
+        p = r["producer_ms"]
+        print(f"ingest: ViT-L AV, {INGEST_WORKERS} {mode}: {r['clips_per_s']:.2f} clips/s after "
+              f"the first step (host clock); the consumer waited {r['wait_ms']:.1f} ms a step "
+              f"(first {r['first_wait_ms']:.1f}); producer per batch fetch {p['fetch']:.1f}, "
+              f"collate {p['collate']:.1f}, masks {p['masks']:.1f} ms over the "
+              f"{r['batches_timed']} batches made after the first arrived; H2D copy and cast {r['h2d_ms']:.1f} ms; "
+              f"the step {r['step_ms']:.1f} ms (host clock to its metrics' sync); losses "
+              f"{r['losses']}; launches {r['launches']}")
+        if r["launches"] != want:
+            raise AssertionError(f"ingest ({mode}): launches {r['launches']}, not {want}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"ingest ({mode}): losses {r['losses']}")
+    t, p = runs["threads"], runs["processes"]
+    if t["digests"] != p["digests"]:
+        bad = [i for i, (a, b) in enumerate(zip(t["digests"], p["digests"])) if a != b]
+        raise AssertionError(f"ingest: batches {bad} differ between threads and processes")
+    if t["losses"] != p["losses"]:
+        raise AssertionError(f"ingest: losses differ: {t['losses']} vs {p['losses']}")
+    print(f"ingest: the {INGEST_STEPS} batches (video, audio, labels, masks) and losses of "
+          f"threads and processes are equal to the bit; phase 15 (a) took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return runs
+
+
+def run_loader_alone(workdir: str, batches: int = 8) -> dict:
+    """Phase 15 (b): the extract app's view (vitl16_extract.yaml, synthetic
+    clips, batch 24) through its loader with 12 threads and with 12
+    processes, no device work: batches/s over ``batches`` batches after the
+    first, beside the rate extract's device time would take. The process
+    workers unpickle the view (which imports torch and the models): asserts
+    that none of them initialised CUDA or loaded the kernels."""
+    import yaml
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.data.loader import BatchLoader
+    from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
+    from avjepa_tpu_torch.serve import extract as ext
+
+    with open(os.path.join(ROOT, "configs/extract/vitl16_extract.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["data"].update(source="synthetic", datasets=[], num_workers=INGEST_WORKERS)
+    d["logging"]["folder"] = os.path.join(workdir, "loader_alone")
+    cfg = load_config(d)
+    b = cfg.data.batch_size
+    view = ext._IndexedView(SyntheticAVDataset(cfg.layout(), length=b * (batches + 1)))
+    out = {}
+    for mode in ("threads", "processes"):
+        loader = ext.build_loader(cfg, view)
+        if loader.use_processes:
+            raise AssertionError("the app's rule picked processes for synthetic clips")
+        if mode == "processes":
+            loader.close()
+            loader = BatchLoader(view, loader.sampler, num_workers=INGEST_WORKERS,
+                                 use_processes=True)
+        it = iter(loader)
+        try:
+            next(it)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in it)
+            secs = time.perf_counter() - t0
+            state = loader._pool.submit(_worker_state).result() if mode == "processes" else None
+        finally:
+            it.close()
+            loader.close()
+        if n != batches:
+            raise AssertionError(f"loader alone ({mode}): {n} batches, not {batches}")
+        out[mode] = n / secs
+        print(f"ingest: extract's loader alone, {INGEST_WORKERS} {mode}: {n / secs:.2f} "
+              f"batches/s = {b * n / secs:.1f} clips/s against the "
+              f"{1000 * b / EXTRACT_DEVICE_MS:.0f} clips/s that {EXTRACT_DEVICE_MS} ms of device "
+              f"time a batch of {b} would take" + (f"; a worker's state {state}" if state else ""))
+        if state and (state["cuda_initialized"] or state["kernels_loaded"]):
+            raise AssertionError(f"a loader worker initialised CUDA or the kernels: {state}")
+    return out
+
+
+def check_off_native(workdir: str, batch: int = 8) -> float:
+    """Phase 15 (c): the ViT-L AV encoder (vitl16_extract.yaml, a 224^2
+    layout; random weights) fed a 16 x 256^2 clip: 2048 video tokens (the
+    pos-embed resized trilinearly) plus 96 audio tokens through K1 (24
+    launches), its pooled features against the plain attention's at
+    POOLED_REL_TOL."""
+    import torch
+    import yaml
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.serve import extract as ext
+    from avjepa_tpu_torch.train.step import feature_layer_norm
+
+    with open(os.path.join(ROOT, "configs/extract/vitl16_extract.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["meta"]["read_checkpoint"] = None
+    d["extract"]["allow_random"] = True
+    d["logging"]["folder"] = os.path.join(workdir, "off_native")
+    cfg = load_config(d)
+    device = torch.device("cuda", 0)
+    encoder = ext.build_encoder(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(15)
+    video = torch.randn((batch, 16, 256, 256, 3), generator=gen, device=device)
+    audio = torch.randn((batch, 128, 192, 1), generator=gen, device=device)
+
+    @torch.inference_mode()
+    def pooled():
+        h = encoder(video, audio)
+        if h.shape != (batch, 2048 + 96, 1024):
+            raise AssertionError(f"off-native tokens {tuple(h.shape)}")
+        return feature_layer_norm(h.float()).mean(1)
+
+    fa.reset_launches()
+    got = pooled()
+    launches = dict(fa.LAUNCHES)
+    with plain_packed_attention():
+        want = pooled()
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"ingest: ViT-L AV encoder (224^2 layout) fed 16 x 256^2 at batch {batch}: 2048 + 96 "
+          f"tokens, pooled features kernel vs plain attention rel L2 {rel:.3e} (tol "
+          f"{POOLED_REL_TOL:g}), finite {bool(torch.isfinite(got).all())}; launches {launches}")
+    if launches["fwd_packed"] != 24 or rel > POOLED_REL_TOL or not torch.isfinite(got).all():
+        raise AssertionError("the off-native ViT-L encoder disagrees with the plain attention")
+    return rel
+
+
+def check_image_predictor(batch: int = 24) -> list:
+    """Phase 15 (d): the predictor in image mode at ViT-L's predictor width
+    (12 x 384, 16 heads of 24; encoder width 1024), a 224^2 image of 196
+    tokens, batch 24, bf16: one forward and backward through K1/K2 (12
+    launches each) against the plain attention: the loss at
+    STEP_LOSS_REL_TOL, the predictor's grad norm at STEP_NORM_REL_TOL."""
+    import torch
+
+    from avjepa_tpu_torch.layout import TokenLayout
+    from avjepa_tpu_torch.models.factory import make_predictor
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train.optim import global_norm
+
+    layout = TokenLayout(num_frames=1, crop_size=224, patch_size=16, tubelet_size=1,
+                         audio_enabled=False)
+    device = torch.device("cuda", 0)
+    pred = make_predictor("vit_large", layout, pred_depth=12, pred_embed_dim=384,
+                          uniform_power=True, zero_init_mask_tokens=False, dtype=torch.bfloat16,
+                          attn_impl="flash", gelu="tanh", seed=16).to(device)
+    n = layout.num_tokens
+    gen = torch.Generator(device=device).manual_seed(16)
+    ctx = torch.randn((batch, n, 1024), generator=gen, device=device).to(torch.bfloat16)
+    target = torch.randn((batch, n, 1024), generator=gen, device=device)
+    enc = torch.rand((batch, n), generator=gen, device=device) < 0.4
+    pmask = ~enc & (torch.rand((batch, n), generator=gen, device=device) < 0.8)
+    midx = torch.arange(batch, device=device) % 2
+
+    def once():
+        pred.zero_grad(set_to_none=True)
+        out = pred(ctx, enc, pmask, midx).float()
+        loss = ((out - target).abs().mean(-1) * pmask).sum() / pmask.sum()
+        loss.backward()
+        grads = [p.grad for p in pred.parameters() if p.grad is not None]
+        return [loss.item(), global_norm(grads).item()]
+
+    fa.reset_launches()
+    kernel = once()
+    launches = dict(fa.LAUNCHES)
+    with plain_packed_attention():
+        plain = once()
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel, plain)]
+    print(f"ingest: image-mode predictor (12 x 384, 16 heads of 24, 196 tokens, batch {batch}, "
+          f"bf16): loss {kernel[0]:.6f} vs {plain[0]:.6f}, grad norm {kernel[1]:.4e} vs "
+          f"{plain[1]:.4e}; rel {rel[0]:.2e}, {rel[1]:.2e} (tol {STEP_LOSS_REL_TOL:g}, "
+          f"{STEP_NORM_REL_TOL:g}); launches {launches}")
+    if launches != {"fwd_packed": 12, "bwd_packed": 12, "fwd": 0, "bwd": 0}:
+        raise AssertionError(f"image-mode predictor launches {launches}")
+    if rel[0] > STEP_LOSS_REL_TOL or rel[1] > STEP_NORM_REL_TOL:
+        raise AssertionError("the image-mode predictor disagrees with the plain attention")
+    return rel
+
+
 def main() -> None:
     try:
         import torch
@@ -2526,6 +2834,12 @@ def main() -> None:
         check_train_vs_plain(workdir)
         check_remat_bits(time_train_step(workdir, remat=True, rounds=3),
                          time_train_step(workdir, remat=False))
+        t0 = time.perf_counter()
+        run_ingest(workdir)
+        run_loader_alone(workdir)
+        check_off_native(workdir)
+        check_image_predictor()
+        print(f"ingest: phase 15 took {time.perf_counter() - t0:.1f} s")
         run_avprediction(workdir, train["ckpt"])
         check_probe_vs_plain(workdir, train["ckpt"])
         time_probe_step(workdir, train["ckpt"])

@@ -23,6 +23,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 from avjepa_tpu.layout import TokenLayout as JaxTokenLayout
 from avjepa_tpu.masks.multiblock3d import make_mask_collator as jax_make_mask_collator
 from avjepa_tpu.models import prediction_probes as jax_probes

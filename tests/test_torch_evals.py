@@ -25,6 +25,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 from avjepa_tpu.data import loader as jax_loader
 from avjepa_tpu.data import randaugment as jax_randaugment
 from avjepa_tpu.evals import video_classification as jax_vc

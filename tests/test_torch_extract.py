@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 from avjepa_tpu.config import load_config as jax_load_config
 from avjepa_tpu.data.loader import ShardedSampler as JaxShardedSampler
 from avjepa_tpu.models.factory import init_encoder_params as jax_init_encoder_params
@@ -135,7 +136,8 @@ def test_package_imports_no_jax():
         "'models.prediction_probes', 'train.avprediction', 'evals', 'evals.av_prediction', "
         "'app.eval_main', 'models.attentive_pooler', 'evals.video_classification', "
         "'evals.image_classification', 'data.randaugment', 'parallel', 'parallel.dist', "
-        "'parallel.fsdp', 'app.main_distributed', 'utils.monitoring')}\n"
+        "'parallel.fsdp', 'app.main_distributed', 'utils.monitoring', "
+        "'data.video_transforms')}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "assert len(mods) >= 36 and not bad(), (len(mods), bad())\n"
         "import chip_smoke\n"

@@ -23,9 +23,11 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 from avjepa_tpu.data import mel as jax_mel
 from avjepa_tpu.data import randaugment as jax_randaugment
 from avjepa_tpu.data import transforms as jax_transforms
+from avjepa_tpu.data import video_transforms as jax_video_transforms
 from avjepa_tpu.data.av_dataset import sample_clip_indices as jax_sample_clip_indices
 from avjepa_tpu.data.synthetic import SyntheticAVDataset as JaxSynthetic
 from avjepa_tpu.layout import TokenLayout as JaxTokenLayout
@@ -43,7 +45,7 @@ from avjepa_tpu.utils import tensors as jax_tensors
 from avjepa_tpu.utils import torch_import as jax_torch_import
 from avjepa_tpu.utils import monitoring as jax_monitoring
 from avjepa_tpu_torch.app.main import launch
-from avjepa_tpu_torch.data import mel, randaugment, transforms
+from avjepa_tpu_torch.data import mel, randaugment, transforms, video_transforms
 from avjepa_tpu_torch.data.av_dataset import sample_clip_indices
 from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
 from avjepa_tpu_torch.layout import TokenLayout
@@ -506,9 +508,11 @@ def test_host_module_copies_match_originals():
     want = jax_transforms.VideoTransform(crop_size=32, auto_augment=True)(
         clip.copy(), np.random.default_rng(3))
     np.testing.assert_array_equal(got, want)
-    for ours, theirs in ((randaugment, jax_randaugment), (monitoring, jax_monitoring)):
+    for ours, theirs in ((randaugment, jax_randaugment), (monitoring, jax_monitoring),
+                         (video_transforms, jax_video_transforms)):
         src = []
         for module in (ours, theirs):
             with open(module.__file__) as f:
-                src.append(f.read().split('"""', 2)[2])  # the code after the docstring
+                code = f.read().split('"""', 2)[2]  # the code after the docstring
+            src.append(code.replace("avjepa_tpu_torch.", "avjepa_tpu."))
         assert src[0] == src[1], ours.__name__
