@@ -178,8 +178,10 @@ def flash_attention_qkv_bwd_ref(
     num_heads: int,
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
+    delta: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The packed backward kernel's contract: dqkv [B, N, 3C].
+    """The packed backward kernel's contract: dqkv [B, N, 3C]. ``delta``
+    defaults to ``attention_delta(out, dout)``.
 
     qs and ks are scaled in f32 and rounded to the input type;
     p = exp(min(s, 80) - lse); dv = T(p)^T.dO; ds = p * (dp - delta) where
@@ -192,7 +194,8 @@ def flash_attention_qkv_bwd_ref(
         scale = d**-0.5
     q, k, v = _split_qkv(qkv, num_heads)
     do = dout.reshape(b, n, num_heads, d).transpose(1, 2).float()
-    delta = attention_delta(out, dout, num_heads)
+    if delta is None:
+        delta = attention_delta(out, dout, num_heads)
     qs = (q.float() * scale).to(dt).float()
     ks = (k.float() * scale).to(dt).float()
     s = torch.matmul(qs, k.float().transpose(-1, -2))
@@ -218,8 +221,10 @@ def flash_attention_bwd_ref(
     dout: torch.Tensor,
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
+    delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The classic backward kernel's contract: (dq, dk, dv) [B, H, N, d].
+    ``delta`` defaults to ``attention_delta(out, dout)``.
 
     p = exp(s * scale + bias - lse), 0 at masked keys (the kernel skips
     all-masked key tiles, and a masked key's p underflows to 0 elsewhere);
@@ -229,7 +234,8 @@ def flash_attention_bwd_ref(
     dt = q.dtype
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    delta = attention_delta(out, dout, q.shape[1])
+    if delta is None:
+        delta = attention_delta(out, dout, q.shape[1])
     do = dout.float()
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     bias = _key_bias(key_mask, q.shape[0], k.shape[2])
@@ -341,15 +347,18 @@ def flash_attention_qkv_bwd(
     num_heads: int,
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
+    delta: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Backward of the packed attention: dqkv [B, N, 3C]. ``key_mask`` is
-    the forward's (bool, or its f32 bias)."""
+    the forward's (bool, or its f32 bias); ``delta`` (f32 [B, H, N]) is
+    rowsum(dO * O), computed by ``avj_attn_delta`` when None."""
     b, n, c3 = qkv.shape
     d = c3 // (3 * num_heads)
     if scale is None:
         scale = d**-0.5
     if qkv.device.type == "cpu":
-        return flash_attention_qkv_bwd_ref(qkv, out, lse, dout, num_heads, key_mask, scale)
+        return flash_attention_qkv_bwd_ref(qkv, out, lse, dout, num_heads, key_mask, scale,
+                                           delta)
     _check_cuda(qkv, "qkv")
     dout = dout.contiguous()
     if dout.shape != out.shape or dout.dtype != qkv.dtype:
@@ -359,7 +368,9 @@ def flash_attention_qkv_bwd(
     dqkv = torch.empty((b, n, c3), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     with torch.cuda.device(qkv.device):
-        delta = _delta_kernel(lib, out, dout, num_heads)
+        if delta is None:
+            delta = _delta_kernel(lib, out, dout, num_heads)
+        delta = delta.float().contiguous()
         code = lib.avj_attn_bwd_packed(
             _DTYPE_CODES[qkv.dtype], qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
             dout.data_ptr(), dout.stride(0), dout.stride(1),
@@ -464,13 +475,15 @@ def flash_attention_bwd(
     dout: torch.Tensor,
     key_mask: torch.Tensor | None = None,
     scale: float | None = None,
+    delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward of the classic attention: (dq, dk, dv) [B, H, N, d]."""
+    """Backward of the classic attention: (dq, dk, dv) [B, H, N, d];
+    ``delta`` as for ``flash_attention_qkv_bwd``."""
     b, h, n, d = q.shape
     if scale is None:
         scale = d**-0.5
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, key_mask, scale)
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, key_mask, scale, delta)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_cuda(t, name)
     dout = dout.contiguous()
@@ -481,7 +494,9 @@ def flash_attention_bwd(
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
     lib = load_library()
     with torch.cuda.device(q.device):
-        delta = _delta_kernel(lib, out, dout, h)
+        if delta is None:
+            delta = _delta_kernel(lib, out, dout, h)
+        delta = delta.float().contiguous()
         code = lib.avj_attn_bwd(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),

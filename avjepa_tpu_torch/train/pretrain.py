@@ -129,7 +129,8 @@ class TrainHandles:
 
     def to_device(self, video, audio, masks: list[MaskSet]):
         """Host batch -> device tensors: pixels cast to the compute dtype on
-        the device; dense masks and the compact index arrays. With
+        the device; dense masks and the compact index arrays. Pixels may
+        also come as tensors already on the device. With
         num_clips > 1 the clips stack along batch and each sample's masks
         are reused for its clips (reference: app/avjepa/train.py:397-423)."""
         c = self.cfg.data.num_clips
@@ -147,7 +148,9 @@ class TrainHandles:
         dev, dt = self.device, DTYPES[self.cfg.meta.dtype]
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(dev, non_blocking=True)
 
         return dict(
             video=put(video).to(dt),

@@ -18,7 +18,9 @@ exits non-zero:
      log; the backward kernels in bf16 and f32 at the training slice's
      shapes and at head_dim 24, 64, 80 and 128, N = 4608, 8 heads, with the
      step's prefix masks, sentinel tails, an empty batch row, ragged N and
-     saturated logits, and three runs of each giving the same bits; then
+     saturated logits, and three runs of each giving the same bits; the f32
+     backward kernels handed the plain delta, equal to the plain versions
+     to the bit; then
      each kernel's time (median of 5 rounds) beside its plain version's, one
      PyTorch library call's (scaled_dot_product_attention, forward or
      backward), its bound and, for the backward kernels, the floor of their
@@ -104,8 +106,17 @@ exits non-zero:
      fed 16 x 256^2 (its pos-embed resized to 2048 tokens, plus 96 audio)
      through K1 against the plain attention; (d) the predictor in image
      mode (12 x 384, 196 tokens, batch 24) forward and backward through
-     K1/K2 against the plain attention.
-Every run of phases 4-5, 9, 11, 12, 13, 14 and 15 is driven with the kernels' launch
+     K1/K2 against the plain attention;
+ 16. (run after phase 7) the bf16 fidelity curve, short: 30 steps of the
+     ViT-L AV step at the north-star geometry (batch 16, remat) at bf16 and
+     at f32 (TF32 off) from the same weights, on the same per-step data and
+     masks (tools/torch_parity_bf16.py, whose --steps 200 runs the whole
+     curve): both runs' losses, the deviation report, each run's step ms and
+     peak memory; fails unless every loss is finite, both runs started from
+     the same weights to the bit, each launched K1 84 and K2 60 times a step,
+     and the max |bf16 - f32| loss is within the reference's own autocast
+     drift (3.96e-3).
+Every run of phases 4-5, 9, 11, 12, 13, 14, 15 and 16 is driven with the kernels' launch
 counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
@@ -539,6 +550,58 @@ def check_bwd_kernels() -> dict:
                 main_err["bwd"] = err
             del q, k, v, dout, out, lse, got, want
     return main_err
+
+
+def check_bwd_plain_delta() -> dict:
+    """K2 and K4 in f32 handed the plain ``attention_delta`` in place of
+    ``avj_attn_delta``'s: dq, dk and dv then equal the plain versions to the
+    bit (raises otherwise). The f32 kernels sum each product with one fma
+    after another in key or query order, as cuBLAS's f32 GEMMs do at these
+    shapes, so only delta's sum order (a fused kernel against torch's
+    reduction) separates them; dv, the one output without delta, reads 0 in
+    check_bwd_kernels. Returns each shape's max abs errors."""
+    import torch
+
+    from avjepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {}
+    print("backward kernels in f32 with the plain delta, against their plain versions:")
+    for b, n, h, d, kind in ((24, 512, 16, 64, "tail"), (48, 1408, 16, 24, "random"),
+                             (4, 1664, 16, 80, "random"), (2, 200, 16, 64, None)):
+        c = h * d
+        qkv = torch.randn((b, n, 3 * c), generator=gen, device="cuda")
+        dout = torch.randn((b, n, c), generator=gen, device="cuda")
+        mask = _key_mask(gen, b, n, kind)
+        out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
+        delta = fa.attention_delta(out, dout, h)
+        got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask, delta=delta)
+        want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask)
+        errs[f"attn_bwd_packed B={b} N={n} H={h} d={d}"] = [
+            _max_err(got[..., i * c:(i + 1) * c], want[..., i * c:(i + 1) * c]) for i in range(3)]
+    for b, n, d, kind in ((24, 512, 64, "tail"), (4, 1408, 24, "random")):
+        q, k, v, dout = (torch.randn((b, 3, n, d), generator=gen, device="cuda") for _ in range(4))
+        mask = _key_mask(gen, b, n, kind)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        delta = fa.attention_delta(out, dout, 3)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, mask, delta=delta)
+        want = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, mask)
+        errs[f"attn_bwd B={b} H=3 N={n} d={d}"] = [_max_err(g, w) for g, w in zip(got, want)]
+    for name, e in errs.items():
+        print(f"  {name} float32: dq, dk, dv max|err| "
+              f"{', '.join(f'{x:.2e}' for x in e)} {'ok' if max(e) == 0.0 else 'FAIL'}")
+    if any(max(e) != 0.0 for e in errs.values()):
+        raise AssertionError("an f32 backward kernel given the plain delta differs from its "
+                             "plain version")
+    return errs
+
+
+def _tool(name: str):
+    """The module ``tools/<name>.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -2812,6 +2875,48 @@ def check_image_predictor(batch: int = 24) -> list:
     return rel
 
 
+# the f32 ViT-L AV step takes ~2.8 s at batch 16 and the bf16 one ~0.39 s
+# (H100 80GB HBM3, 700 W), so 30 steps keep phase 16 near two minutes
+FIDELITY_STEPS = 30
+FIDELITY_BATCH = 16
+
+
+def run_fidelity(steps: int = FIDELITY_STEPS) -> dict:
+    """Phase 16: ``steps`` steps of the fidelity curve
+    (tools/torch_parity_bf16.py) at the north-star geometry, batch 16: both
+    runs' losses, the deviation report, step ms and peak memory. Raises
+    unless every loss is finite, both runs started from the same weights to
+    the bit, each launched K1 84 and K2 60 times a step (counts set to 0
+    before each run), and max |bf16 - f32| is within the reference's
+    autocast drift."""
+    tp = _tool("torch_parity_bf16")
+    t0 = time.perf_counter()
+    out = tp.run_curve(tp.north_star_config("vit_large", FIDELITY_BATCH), steps, "cuda")
+    report = out["report"]
+    want = {"fwd_packed": steps * VITL_K1_A_STEP, "bwd_packed": steps * 60, "fwd": 0, "bwd": 0}
+    print(f"fidelity: bf16 losses {out['bf16_losses']}")
+    print(f"fidelity: f32 losses {out['f32_losses']}")
+    print(f"fidelity: ViT-L AV batch {FIDELITY_BATCH}, {steps} steps: max |bf16 - f32| "
+          f"{report['max_abs_dev']:.3e} (limit {tp.REFERENCE_AUTOCAST_MAX_ABS_DEV:g}, the "
+          f"reference's autocast drift; the JAX package's {tp.JAX_MAX_ABS_DEV:g} over 200 "
+          f"steps), max rel {report['max_rel_dev']:.3e}; step ms bf16 {out['bf16_step_ms']:.1f}, "
+          f"f32 {out['f32_step_ms']:.1f}; peak GiB bf16 {out['bf16_peak_gib']:.2f}, f32 "
+          f"{out['f32_peak_gib']:.2f}; launches bf16 {out['bf16_launches']}, f32 "
+          f"{out['f32_launches']} (expected {want} each); same start {out['same_start']}; "
+          f"{card_line()}")
+    if not out["finite"]:
+        raise AssertionError("fidelity: a loss is not finite")
+    if not out["same_start"]:
+        raise AssertionError("fidelity: the two runs did not start from the same weights")
+    if out["bf16_launches"] != want or out["f32_launches"] != want:
+        raise AssertionError("fidelity: launch counts differ from one K1 a layer")
+    if not report["max_abs_dev"] <= tp.REFERENCE_AUTOCAST_MAX_ABS_DEV:
+        raise AssertionError(f"fidelity: max |bf16 - f32| {report['max_abs_dev']:.3e} exceeds "
+                             f"{tp.REFERENCE_AUTOCAST_MAX_ABS_DEV:g}")
+    print(f"fidelity: phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2826,6 +2931,7 @@ def main() -> None:
     toolchain()
     build()
     errs = {**check_kernels(), **check_bwd_kernels()}
+    check_bwd_plain_delta()
     ln_errs, ln_launches = check_ln_kernels()
     times = {**time_kernels(), **time_ln_kernels()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -2834,6 +2940,7 @@ def main() -> None:
         check_train_vs_plain(workdir)
         check_remat_bits(time_train_step(workdir, remat=True, rounds=3),
                          time_train_step(workdir, remat=False))
+        run_fidelity()
         t0 = time.perf_counter()
         run_ingest(workdir)
         run_loader_alone(workdir)

@@ -120,11 +120,12 @@ def test_package_imports_no_jax():
     """Every module of avjepa_tpu_torch imports (the avprediction slice's
     among them: the LayerNorm kernels, probes, app, eval and eval CLI; and
     the classification evals', with the attentive classifier and
-    RandAugment), then
-    chip_smoke; none of them pulls in JAX (or flax, optax, orbax) or any module of the JAX
-    package avjepa_tpu, directly or through what it imports."""
+    RandAugment), then chip_smoke, then the port's tools
+    tools/torch_parity_bf16.py and tools/torch_run_chain.py; none of them
+    pulls in JAX (or flax, optax, orbax) or any module of the JAX package
+    avjepa_tpu, directly or through what it imports."""
     code = (
-        "import importlib, pkgutil, sys, avjepa_tpu_torch\n"
+        "import importlib, importlib.util, pkgutil, sys, avjepa_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(avjepa_tpu_torch.__path__, "
         "'avjepa_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
@@ -142,6 +143,10 @@ def test_package_imports_no_jax():
         "assert len(mods) >= 36 and not bad(), (len(mods), bad())\n"
         "import chip_smoke\n"
         "assert not bad(), bad()\n"
+        "for tool in ('torch_parity_bf16', 'torch_run_chain'):\n"
+        "    spec = importlib.util.spec_from_file_location(tool, f'tools/{tool}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    assert not bad(), (tool, bad())\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

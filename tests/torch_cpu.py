@@ -1,7 +1,20 @@
 """Set-up shared by the port's CPU test modules that run its models."""
 
+import importlib.util
+import os
+
 import pytest
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_tool(name: str):
+    """The module ``tools/<name>.py`` (tools/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture(scope="module", autouse=True)
