@@ -11,8 +11,10 @@ eval.py is a stub). The data contract the training pipeline does not have:
 - a fresh mask collator with ``base_seed = meta.seed + 101`` and its counter
   at -1, so the masks are the same run to run;
 - a strict probe restore: every probe parameter must be in
-  ``<folder>/<tag>-probe-latest.pth.tar`` with its shape, so a random probe
-  never passes for a trained one; a missing file raises, and so does a
+  ``<folder>/<tag>-probe-latest.pth.tar`` (or the JAX app's
+  ``<tag>-probe-ckpt`` beside it, when that holds a later step) with its
+  shape, so a random probe never passes for a trained one; a missing
+  checkpoint raises, and so does a
   missing JEPA checkpoint (``require_jepa``, by default ``require_probe``).
 
 Metrics per modality over EVERY mask config of ``cfg.mask`` (mask index
@@ -41,7 +43,7 @@ from avjepa_tpu_torch.data.synthetic import SyntheticAVDataset
 from avjepa_tpu_torch.masks.multiblock3d import make_mask_collator
 from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train import avprediction
-from avjepa_tpu_torch.utils.checkpoint import load_probe_state
+from avjepa_tpu_torch.utils.checkpoint import load_probe_state, resume_source
 from avjepa_tpu_torch.utils.device import resolve_device
 from avjepa_tpu_torch.utils.logging import AverageMeter, get_logger
 
@@ -106,6 +108,7 @@ def run(cfg: ExperimentConfig, max_batches: int = 50, require_probe: bool = True
     avprediction.restore_jepa_weights(handles, cfg, logger, require=require_jepa)
     path = avprediction.probe_path(cfg)
     try:
+        path = resume_source(path) or path
         load_probe_state(path, state)
         logger.info(f"loaded trained probe from {path}")
     except FileNotFoundError:

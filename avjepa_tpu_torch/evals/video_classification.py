@@ -4,8 +4,8 @@
 
 Counterpart of ``avjepa_tpu/evals/video_classification.py`` (reference:
 evals/video_classification_frozen/eval.py + utils.py): merge the pretrain
-checkpoint's target encoder into a video-only ViT (``.pth.tar``, leaf by
-leaf), wrap it in clip aggregation (multi-segment, multi-view; optional
+checkpoint's target encoder into a video-only ViT (a ``.pth.tar`` or a
+JAX pretrain Orbax directory, leaf by leaf), wrap it in clip aggregation (multi-segment, multi-view; optional
 attend-across-segments concat with a 1-D temporal pos-embed; optional frame
 aggregation through an image-mode encoder), train an ``AttentiveClassifier``
 with cross-entropy, and report top-1 of the softmax averaged over segments
@@ -25,8 +25,9 @@ process, as in the JAX eval. The probe step is the JAX one: lr
 from the schedule each step, constant weight decay, the global-norm clip at
 1.0, AdamW with ``wd_mask``'s rule (``optim.plain_decays``). The classifier
 state is saved to ``<folder>/<tag>-cls-latest.pth.tar`` and restored under
-``optimization.resume_checkpoint`` or a preemption resume; a stale or
-mismatched file starts fresh.
+``optimization.resume_checkpoint`` or a preemption resume, from that file or
+from the JAX eval's ``<tag>-cls-ckpt`` beside it when that holds a later
+step; a stale or mismatched checkpoint starts fresh.
 """
 
 from __future__ import annotations
@@ -380,8 +381,9 @@ def classifier_path(folder: str, tag: str) -> str:
 
 
 def restore_classifier(path: str, state: ClassifierState, resume: bool) -> tuple[int, int]:
-    """(first epoch, step last saved): the saved classifier when ``resume``
-    and the file fits, else a fresh start at (0, -1)."""
+    """(first epoch, step last saved): the saved classifier (``path``, or
+    the JAX ``-cls-ckpt`` beside it when later) when ``resume`` and it
+    fits, else a fresh start at (0, -1)."""
     epoch = load_classifier_state(path, state) if resume else None
     if epoch is None:
         return 0, -1

@@ -14,10 +14,12 @@ predictor with mask config 0 and no ``gather_idx``; both under
 default, as in the JAX package) and takes the frozen tokens in f32; its
 AdamW has no gradient clipping and uses the step-derived lr/wd schedules.
 
-``meta.read_checkpoint`` names a ``.pth.tar`` (the pretrain app's output);
-an Orbax directory is refused, naming the converter. The probe is saved at
+``meta.read_checkpoint`` names a ``.pth.tar`` (the pretrain app's output)
+or a JAX pretrain Orbax directory (``<tag>-ckpt``). The probe is saved at
 the end of every epoch to ``<folder>/<tag>-probe-latest.pth.tar``; with
-``resume_preempt`` a run restores it and resumes at ``step // ipe``.
+``resume_preempt`` a run restores it, or the JAX app's
+``<tag>-probe-ckpt`` when that holds a later step, and resumes at
+``step // ipe``.
 
 ``example_main`` is the avprediction_example app (inference and
 visualization twin).
@@ -51,7 +53,12 @@ from avjepa_tpu_torch.models.prediction_probes import AttentionProbe, init_probe
 from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train import pretrain
 from avjepa_tpu_torch.train.optim import ScheduleConfig, lr_at_step, make_optimizer, set_lr_wd, wd_at_step
-from avjepa_tpu_torch.utils.checkpoint import load_jepa_weights, load_probe_state, save_probe_state
+from avjepa_tpu_torch.utils.checkpoint import (
+    load_jepa_weights,
+    load_probe_state,
+    resume_source,
+    save_probe_state,
+)
 from avjepa_tpu_torch.utils.device import resolve_device
 from avjepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger
 
@@ -94,8 +101,9 @@ def setup_probe(cfg: ExperimentConfig, device: torch.device):
 
 def restore_jepa_weights(handles, cfg: ExperimentConfig, logger, require: bool = False) -> bool:
     """Load the frozen target encoder and predictor from
-    ``meta.read_checkpoint`` into ``handles.state``; True when loaded. A
-    directory (an Orbax checkpoint) raises. A missing file warns loudly (the
+    ``meta.read_checkpoint`` (a ``.pth.tar`` or a JAX ``<tag>-ckpt``
+    directory, which raises without a committed step) into
+    ``handles.state``; True when loaded. A missing file warns loudly (the
     frozen models would be the random init) or, with ``require`` (the
     eval), raises FileNotFoundError."""
     path = cfg.meta.read_checkpoint
@@ -180,8 +188,9 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None, resume_preempt: 
         path = probe_path(cfg)
         last_saved, start_epoch = -1, 0
         ipe, epochs = cfg.optimization.ipe, cfg.optimization.epochs
-        if resume_preempt and os.path.isfile(path):
-            load_probe_state(path, state)
+        src = resume_source(path) if resume_preempt else None
+        if src is not None:
+            load_probe_state(src, state)
             last_saved = state.step
             start_epoch = min(state.step // max(ipe, 1), epochs)
             logger.info(f"resumed probe from step {state.step} (epoch {start_epoch})")
@@ -262,9 +271,10 @@ def _example(cfg: ExperimentConfig, device: torch.device, logger, handles, state
     try:
         os.makedirs(folder, exist_ok=True)
         restore_jepa_weights(handles, cfg, logger)
-        if os.path.isfile(probe_path(cfg)):
-            load_probe_state(probe_path(cfg), state)
-            logger.info("loaded trained probe")
+        src = resume_source(probe_path(cfg))
+        if src is not None:
+            load_probe_state(src, state)
+            logger.info(f"loaded trained probe from {src}")
         else:
             logger.warning(f"no trained probe at {probe_path(cfg)}; reconstructing with the "
                            "initial probe")

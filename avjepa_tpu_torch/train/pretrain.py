@@ -12,6 +12,9 @@ last epoch, at ``max_steps`` and on SIGTERM, and resume with
 ``meta.load_checkpoint``. Checkpoints are reference-layout ``.pth.tar``
 files: ``<folder>/<tag>-latest.pth.tar``, and ``<tag>-ep<N>.pth.tar`` every
 ``save_every_freq`` epochs (reference: app/avjepa/train.py:332-350,639-644).
+A resume also reads the JAX app's Orbax ``<folder>/<tag>-ckpt``: of the two,
+the one with the later step (the ``.pth.tar`` on a tie); without either,
+``meta.read_checkpoint``, a ``.pth.tar`` or an Orbax directory.
 The models keep f32 parameters and compute in ``meta.dtype``.
 
 With a process group (``parallel/dist.py``, one process per GPU) each rank
@@ -55,7 +58,12 @@ from avjepa_tpu_torch.parallel import dist
 from avjepa_tpu_torch.train.optim import ScheduleConfig
 from avjepa_tpu_torch.train.state import TrainState, init_state
 from avjepa_tpu_torch.train.step import StepConfig, train_step
-from avjepa_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+from avjepa_tpu_torch.utils.checkpoint import (
+    checkpoint_step,
+    load_train_state,
+    resume_source,
+    save_train_state,
+)
 from avjepa_tpu_torch.utils.device import resolve_device
 from avjepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, StepTimer, get_logger
 from avjepa_tpu_torch.utils.monitoring import ResourceMonitor
@@ -206,6 +214,24 @@ def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
     return TrainHandles(cfg, device, state, sched, step_cfg, loader, collator)
 
 
+def resume(cfg: ExperimentConfig, state: TrainState) -> Optional[str]:
+    """``meta.load_checkpoint``'s restore of ``state``: from the run's own
+    ``<tag>-latest.pth.tar`` or the JAX app's ``<tag>-ckpt`` beside it,
+    whichever holds the later step (the ``.pth.tar`` on a tie), else from
+    ``meta.read_checkpoint`` (a ``.pth.tar`` or an Orbax directory); a
+    missing one leaves the fresh init. Returns the checkpoint read."""
+    logger = get_logger("avjepa_tpu_torch")
+    folder, tag = cfg.logging.folder, cfg.logging.write_tag
+    src = resume_source(os.path.join(folder, f"{tag}-latest.pth.tar")) or cfg.meta.read_checkpoint
+    if src and checkpoint_step(src) is not None:
+        load_train_state(src, state)
+        logger.info(f"resumed from step {state.step} ({src})")
+        return src
+    if src:
+        logger.warning(f"read_checkpoint {src} not found; fresh init")
+    return None
+
+
 def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         device: str | torch.device = "cuda") -> dict:
     """The pretraining loop; returns summary metrics."""
@@ -242,14 +268,8 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         state = handles.state
         csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r{rank}.csv"), *CSV_COLUMNS)
         latest = os.path.join(folder, f"{tag}-latest.pth.tar")
-
         if cfg.meta.load_checkpoint:
-            src = latest if os.path.exists(latest) else cfg.meta.read_checkpoint
-            if src and os.path.exists(src):
-                load_train_state(src, state)
-                logger.info(f"resumed from step {state.step} ({src})")
-            elif src:
-                logger.warning(f"read_checkpoint {src} not found; fresh init")
+            resume(cfg, state)
 
         ipe = cfg.optimization.ipe
         start_epoch = state.step // ipe

@@ -116,7 +116,15 @@ exits non-zero:
      the same weights to the bit, each launched K1 84 and K2 60 times a step,
      and the max |bf16 - f32| loss is within the reference's own autocast
      drift (3.96e-3).
-Every run of phases 4-5, 9, 11, 12, 13, 14, 15 and 16 is driven with the kernels' launch
+ 17. (run last) checkpoints: the ViT-L AV pretrain state (av-vitl16.yaml)
+     saved after 3 of 6 steps and restored into fresh models, through the
+     JAX package's Orbax layout (the port's own writer and reader, no JAX)
+     and through the port's .pth.tar: each resumed run's losses and final
+     weights equal the uninterrupted run's to the bit, every restored
+     tensor equals the saved one; each format's bytes on disk, save and
+     restore seconds and GB/s; whether libzstd.so.1 loads, and with it a
+     zstd frame the port wrote, decoded.
+Every run of phases 4-5, 9, 11, 12, 13, 14, 15, 16 and 17 is driven with the kernels' launch
 counts set to 0 just before it and asserted just after. The last lines are a JSON
 kernel table, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a GPU it exits 1 and prints no result.
@@ -137,6 +145,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -823,22 +832,44 @@ def plain_packed_attention():
             setattr(modules, name, fn)
 
 
+# torch.profiler (CUPTI) on the H100 host can return a profile that holds no
+# device time: such a profile is taken again, this many times in all, and a
+# share of a device time that stays 0 prints "not measured"
+PROFILE_TRIES = 3
+
+
+def _cuda_events(fn, calls: int, want: str = ""):
+    """torch.profiler over ``calls`` calls of ``fn``: (the profiler, its
+    key_averages() CUDA events). Profiled again, up to PROFILE_TRIES times,
+    while the kernels whose names hold ``want`` (all of them by default)
+    record no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if sum(e.self_device_time_total for e in events if want in e.key) > 0:
+            break
+    return prof, events
+
+
+def _share(part: float, whole: float) -> str:
+    return f"{100 * part / whole:.1f}%" if whole > 0 else "not measured"
+
+
 def _profile(run, label: str, filename: str, steps: int = 2) -> float:
     """torch.profiler over ``steps`` calls of ``run``: the device time by
     kernel written to chiprun_out/<filename>; prints the device kernel ms per
     call, the top kernels and the forward attention kernel's share. Returns
     the device kernel ms per call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
+    prof, events = _cuda_events(run, steps)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in events) / (1e3 * steps)
     fwd = sum(e.self_device_time_total for e in events
               if "attn_fwd" in e.key) / (1e3 * steps)
@@ -846,11 +877,11 @@ def _profile(run, label: str, filename: str, steps: int = 2) -> float:
     bwd_ms = sum(e.self_device_time_total for e in bwd) / (1e3 * steps)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(f"{label}: profile, {total:.1f} ms of device kernels per call; forward attention "
-          f"kernel {fwd:.1f} ms ({100 * fwd / total:.1f}%); top: " + "; ".join(
+          f"kernel {fwd:.1f} ms ({_share(fwd, total)}); top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / (1e3 * steps):.2f} ms" for e in top))
     if bwd:
         print(f"{label}: backward attention kernels {bwd_ms:.1f} ms "
-              f"({100 * bwd_ms / total:.1f}%): " + "; ".join(
+              f"({_share(bwd_ms, total)}): " + "; ".join(
                   f"{e.key[e.key.index('attn_bwd'):].split('(')[0]} "
                   f"{e.self_device_time_total / (1e3 * steps):.2f} ms"
                   f" ({e.count // steps} a call)" for e in bwd))
@@ -1245,20 +1276,16 @@ def check_ln_kernels() -> tuple[dict, dict]:
     return main_err, launches
 
 
-def _device_ms(fn, calls: int = 20) -> dict:
+def _device_ms(fn, calls: int = 20, want: str = "") -> dict:
     """Device time of each CUDA kernel per call of ``fn`` by torch.profiler
-    (after one warm call): {kernel name: ms per call}."""
+    (after one warm call): {kernel name: ms per call}. See _cuda_events for
+    ``want``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / (1e3 * calls) for e in prof.key_averages()
-            if e.device_type.name == "CUDA"}
+    _, events = _cuda_events(fn, calls, want)
+    return {e.key: e.self_device_time_total / (1e3 * calls) for e in events}
 
 
 def time_ln_kernels() -> dict:
@@ -1308,16 +1335,17 @@ def time_ln_kernels() -> dict:
             k_min, k_ms, k_max = _time_rounds(kernel, 20)
             l_min, l_ms, l_max = _time_rounds(lib, 20)
             plain_ms = _time_ms(plain, 3)
-            dev = _device_ms(kernel)
+            dev = _device_ms(kernel, want=name)
             k_dev = sum(ms for key, ms in dev.items() if name in key)
             l_dev = sum(_device_ms(lib).values())
+            ratio = f"{k_dev / l_dev:.2f}" if k_dev > 0 and l_dev > 0 else "not measured"
             split = "; ".join(f"{key.split('(')[0][:48]} {ms:.4f}" for key, ms in dev.items())
             print(f"time {name} bf16 [{r}, {c}]: kernel {k_ms:.4f} ms (median of {TIME_ROUNDS} "
                   f"rounds; {k_min:.4f}-{k_max:.4f}), device {k_dev:.4f} ms ({split}); plain "
                   f"{plain_ms:.4f} ms; library (F.layer_norm) {l_ms:.4f} ms ({l_min:.4f}-"
                   f"{l_max:.4f}), device {l_dev:.4f} ms; bound {bound:.4f} ms ({by}): "
-                  f"{100 * bound / k_ms:.1f}% of the bound by events, {100 * bound / k_dev:.1f}% "
-                  f"by device time; kernel/library device {k_dev / l_dev:.2f}")
+                  f"{_share(bound, k_ms)} of the bound by events, {_share(bound, k_dev)} "
+                  f"by device time; kernel/library device {ratio}")
             key = name if (r, c) == LN_TIMED[0] else f"{name} {r}x{c}"
             times[key] = (k_ms, plain_ms, l_ms, bound, by)
         del x, dy, xr, wr, br, yr
@@ -2917,6 +2945,170 @@ def run_fidelity(steps: int = FIDELITY_STEPS) -> dict:
     return out
 
 
+# phase 17: the ViT-L AV state saved after 3 steps and restored into fresh
+# models must continue exactly as the run that was never interrupted
+RESUME_STEPS = 6
+
+
+def _dir_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _differing(saved: dict, restored: dict) -> list:
+    """Names of the tensors of two ``train_checkpoint`` dicts that are not
+    equal to the bit: the three models' entries, each AdamW state's moments
+    and step, the step."""
+    import torch
+
+    bad = [f"{key}.{k}" for key in ("encoder", "predictor", "target_encoder")
+           for k, v in saved[key].items()
+           if k not in restored[key] or not torch.equal(v, restored[key][k])]
+    s, r = saved["opt"]["state"], restored["opt"]["state"]
+    if sorted(s) != sorted(r):
+        bad.append("opt.state keys")
+    bad += [f"opt.{i}.{k}" for i in s if i in r for k, v in s[i].items()
+            if k not in r[i] or not torch.equal(v, r[i][k])]
+    return bad + (["step"] if saved["step"] != restored["step"] else [])
+
+
+def run_resume(workdir: str) -> dict:
+    """Phase 17: the ViT-L AV state (av-vitl16.yaml: bf16 over f32, batch
+    24, remat) through a save and a restore in each format, the JAX
+    package's Orbax layout (the port's writer and reader,
+    utils/orbax.py) and the port's .pth.tar. 6 steps uninterrupted; then,
+    per format, 3 steps from the same start, a save of the whole state
+    (params, EMA target, AdamW moments and steps, step), the models dropped,
+    fresh ones built and restored, 3 more steps, on the same 6 batches and
+    masks. Raises unless each format's 6 losses and final weight digest
+    equal the uninterrupted run's to the bit, every restored tensor equals
+    the saved one, and K1/K2 launched 84 and 60 times a step (counts set to
+    0 before each run). Prints each format's bytes on disk, save and
+    restore seconds and GB/s (the restore reads what the save just wrote:
+    a warm page cache), and whether libzstd.so.1 loaded; with it, a zstd
+    frame the port wrote (a weight of the restored predictor) is decoded."""
+    import gc
+
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+    from avjepa_tpu_torch.utils import orbax
+    from avjepa_tpu_torch.utils.checkpoint import (
+        load_train_state,
+        save_train_state,
+        save_train_state_orbax,
+        train_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = load_config(_pretrain_cfg("av-vitl16.yaml", workdir))
+    dev = torch.device("cuda", 0)
+    h = pretrain.setup(cfg, dev)
+    try:
+        it = iter(h.loader)
+        batches = [(v, a, m) for v, a, _, m in (next(it) for _ in range(RESUME_STEPS))]
+        it.close()
+    finally:
+        h.loader.close()
+    del h
+
+    def fresh():
+        h = pretrain.setup(cfg, dev)
+        h.loader.close()
+        return h
+
+    def drop(h):
+        del h.state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def steps(h, first: int, n: int) -> list:
+        return [train_step(h.state, h.sched, h.step_cfg, **h.to_device(*batches[i]),
+                           full_metrics=False)["loss"] for i in range(first, first + n)]
+
+    def check_launches(label: str, n: int) -> None:
+        want = {"fwd_packed": n * VITL_K1_A_STEP, "bwd_packed": n * 60, "fwd": 0, "bwd": 0}
+        if dict(fa.LAUNCHES) != want:
+            raise AssertionError(f"resume: {label} launches {dict(fa.LAUNCHES)}, not {want}")
+
+    h = fresh()
+    fa.reset_launches()
+    want_losses = steps(h, 0, RESUME_STEPS)
+    check_launches("uninterrupted run", RESUME_STEPS)
+    models = lambda h: [h.state.encoder, h.state.predictor, h.state.target_encoder]
+    want_digest = _digest(models(h))
+    n_values = sum(p.numel() for m in models(h) for p in m.parameters()) + sum(
+        t.numel() for s in h.state.optimizer.state.values() for t in s.values() if t.dim())
+    drop(h)
+    print(f"resume: uninterrupted ViT-L AV run, losses {want_losses}, digest "
+          f"{want_digest[:16]}; the state holds {n_values / 1e9:.3f} G values")
+
+    half = RESUME_STEPS // 2
+    formats = {
+        "orbax": (os.path.join(workdir, "resume", "vitl-ckpt"),
+                  lambda path, state: save_train_state_orbax(path, state)),
+        "pth": (os.path.join(workdir, "resume", "vitl-latest.pth.tar"),
+                lambda path, state: save_train_state(path, state, epoch=0, loss=0.0,
+                                                     batch_size=cfg.data.batch_size, lr=0.0)),
+    }
+    os.makedirs(os.path.join(workdir, "resume"), exist_ok=True)
+    out = {}
+    for fmt, (path, save) in formats.items():
+        h = fresh()
+        fa.reset_launches()
+        losses = steps(h, 0, half)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, h.state)
+        save_s = time.perf_counter() - t0
+        saved = train_checkpoint(h.state)
+        drop(h)
+        h = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_train_state(path, h.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = _differing(saved, train_checkpoint(h.state))
+        del saved
+        losses += steps(h, half, RESUME_STEPS - half)
+        check_launches(f"{fmt} resume", RESUME_STEPS)
+        digest = _digest(models(h))
+        predictor = {k: v.cpu() for k, v in h.state.predictor.state_dict().items()}
+        drop(h)
+        nbytes = _dir_bytes(path)
+        shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        out[fmt] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                    "save_gb_s": nbytes / save_s / 1e9, "restore_gb_s": nbytes / restore_s / 1e9,
+                    "losses": losses, "same_losses": losses == want_losses,
+                    "same_digest": digest == want_digest, "differing": bad}
+        print(f"resume: {fmt}: {nbytes} bytes on disk; save {save_s:.2f} s "
+              f"({nbytes / save_s / 1e9:.3f} GB/s), restore {restore_s:.2f} s "
+              f"({nbytes / restore_s / 1e9:.3f} GB/s, warm page cache); losses {losses}; "
+              f"losses equal to the bit {losses == want_losses}, digest equal "
+              f"{digest == want_digest}, restored tensors differing {len(bad)} "
+              f"{bad[:4]}; {card_line()}")
+        if bad or losses != want_losses or digest != want_digest:
+            raise AssertionError(f"resume through {fmt} does not continue the run exactly")
+
+    zstd = orbax.zstd_available()
+    print(f"resume: libzstd.so.1 loaded: {zstd}")
+    if zstd:
+        w = predictor["predictor_blocks.0.attn.qkv.weight"].numpy()
+        frame = orbax.zstd_compress(w, 1)
+        if orbax.zstd_decompress(frame) != w.tobytes():
+            raise AssertionError("resume: a zstd frame did not decode to its bytes")
+        print(f"resume: a zstd frame of the predictor's first qkv weight ({w.nbytes} bytes "
+              f"in {len(frame)}) written and read back to the bit through libzstd")
+    out["zstd"] = zstd
+    print(f"resume: phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2961,6 +3153,7 @@ def main() -> None:
         run_vith_fsdp(workdir, run_vith(workdir))
         print(f"vith16: phase 13 took {time.perf_counter() - t0:.1f} s")
         run_vith_tensor(workdir)
+        run_resume(workdir)
 
     # launches: each kernel's count in this slice's run that uses it (ViT-L
     # AV pretrain for the packed kernels, vit_tiny pretrain for the classic)

@@ -354,7 +354,9 @@ def test_avprediction_apps_on_cpu(tmp_path):
     """avprediction for 2 steps on a pretrain-style .pth.tar, resume, the
     example app, and the av_prediction eval through its CLI entry and run():
     the CSV columns, the probe checkpoint, the JAX eval's summary keys and
-    strictness, determinism, and the refusal of an Orbax directory."""
+    strictness, determinism; the same JEPA checkpoint as a JAX pretrain
+    Orbax directory gives the same frozen models, and a directory without a
+    committed step raises."""
     from avjepa_tpu_torch.app.eval_main import launch as eval_launch
 
     # a JEPA checkpoint as the pretrain app writes it, from another seed
@@ -413,7 +415,21 @@ def test_avprediction_apps_on_cpu(tmp_path):
     assert all(np.isfinite(v) for v in first["mse_video_per_mask"] + first["mse_audio_per_mask"])
     assert av_prediction.run(ecfg, max_batches=2, device="cpu") == first
 
-    # an Orbax directory is refused, naming the converter
-    with pytest.raises(ValueError, match="convert_reference_checkpoint"):
+    # the JEPA checkpoint as the JAX pretrain app's Orbax directory, written
+    # by the JAX manager: the same frozen models; no committed step raises
+    from avjepa_tpu.utils.checkpoint import CheckpointManager as JaxManager
+    from avjepa_tpu_torch.utils.checkpoint import jax_tree
+
+    orbax_dir = str(tmp_path / "jepa-ckpt")
+    JaxManager(orbax_dir).save(0, jax_tree(saved))
+    h3, _, _ = avprediction.setup_probe(cfg, torch.device("cpu"))
+    h3.loader.close()
+    assert avprediction.restore_jepa_weights(h3, load_config(_cfg(tmp_path, meta={
+        "read_checkpoint": orbax_dir})), get_logger())
+    for module in ("target_encoder", "predictor"):
+        got = getattr(h3.state, module).state_dict()
+        want = getattr(h2.state, module).state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want), module
+    with pytest.raises(FileNotFoundError, match="committed"):
         avprediction.restore_jepa_weights(h2, load_config(_cfg(tmp_path, meta={
             "read_checkpoint": str(tmp_path)})), get_logger())

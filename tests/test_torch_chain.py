@@ -16,7 +16,7 @@ import yaml
 from torch_cpu import load_tool, one_torch_thread  # noqa: F401 (autouse)
 from avjepa_tpu_torch.config import load_config
 from avjepa_tpu_torch.evals.video_classification import config_from_yaml
-from avjepa_tpu_torch.train import pretrain
+from avjepa_tpu_torch.train import optim, pretrain
 from avjepa_tpu_torch.utils.checkpoint import save_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,37 +66,53 @@ def test_stage_configs_load_through_the_port(tmp_path):
 
 def test_crossing_port_jax_port_is_bit_exact(tmp_path):
     """A tiny pretrain checkpoint of the port (its target encoder moved off
-    the encoder) goes through the JAX converter, in this process, into an
-    Orbax checkpoint and back to a .pth.tar: the port reads every encoder,
-    predictor and target-encoder entry back to the bit."""
-    converter = load_tool("convert_reference_checkpoint")
+    the encoder, one AdamW step taken) goes through the port's Orbax writer;
+    the JAX manager restores it and saves it again, in this process (the
+    chain's ``jax_resave``); the port reads every encoder, predictor and
+    target-encoder entry, the moments and the step back to the bit, also
+    after ``--export`` to a .pth.tar."""
+    from avjepa_tpu_torch.utils.checkpoint import read_checkpoint
+
+    converter = load_tool("torch_convert_checkpoint")
     wd = str(tmp_path)
     args = chain.parse_args(["--workdir", wd, "--crop", "32", "--frames", "4"])
     d = chain.stage_configs(args, wd, "", "", "")["pretrain"]
     d["data"].update(source="synthetic", datasets=[], num_workers=0)
-    cfg_path = os.path.join(wd, "pretrain.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(d, f)
     h = pretrain.setup(load_config(d), torch.device("cpu"))
     h.loader.close()
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in h.state.target_encoder.parameters():
             p.add_(torch.randn(p.shape, generator=gen) * 1e-3)
+    params = [p for g in h.state.optimizer.param_groups for p in g["params"]]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen)
+    h.state.optimizer.step()
+    h.state.step = 7
     pth = os.path.join(wd, "chain-latest.pth.tar")
     save_train_state(pth, h.state, epoch=1, loss=0.0, batch_size=2, lr=0.0)
 
-    ckpt_dir = converter.convert(pth, cfg_path, os.path.join(wd, "crossing"), "chain")
-    back = converter.export(ckpt_dir, os.path.join(wd, "back.pth.tar"), ipe=args.ipe)
-    n = chain.same_target_encoder(pth, back)
+    ours, theirs = (os.path.join(wd, "crossing", side, "chain-ckpt") for side in ("port", "jax"))
+    assert converter.to_orbax(pth, ours) == 7
+    assert chain.jax_resave(ours, theirs) == 7
+    n = chain.same_target_encoder(pth, theirs)
     assert n == len(list(h.state.target_encoder.parameters()))
-    ours = torch.load(pth, weights_only=True)
-    theirs = torch.load(back, weights_only=True)
-    for key in ("encoder", "predictor"):
-        want = {k: v for k, v in ours[key].items() if "pos_embed" not in k}
-        got = {k: v for k, v in theirs[key].items() if "pos_embed" not in k}
-        assert sorted(got) == sorted(want), key
-        assert all(torch.equal(got[k], want[k]) for k in want), key
+    want = torch.load(pth, weights_only=True)
+    back = converter.export(theirs, os.path.join(wd, "back.pth.tar"), ipe=args.ipe)
+    for got in (read_checkpoint(theirs), torch.load(back, weights_only=True)):
+        assert got["step"] == 7
+        for key in ("encoder", "predictor", "target_encoder"):
+            w = {k: v for k, v in want[key].items() if "pos_embed" not in k}
+            assert sorted(got[key]) == sorted(w), key
+            assert all(torch.equal(got[key][k], w[k]) for k in w), key
+        moments = got["opt"]["by_name"]
+        for i, (key, name) in enumerate(
+                (k, n) for flag in (True, False) for k in ("encoder", "predictor")
+                for n, p in want[k].items() if optim.decays(n, p) == flag):
+            s = want["opt"]["state"][i]
+            assert moments[key]["step"] == int(s["step"]) == 1
+            assert torch.equal(moments[key]["exp_avg"][name], s["exp_avg"]), name
+            assert torch.equal(moments[key]["exp_avg_sq"][name], s["exp_avg_sq"]), name
 
 
 @pytest.mark.skipif(
@@ -124,5 +140,5 @@ def test_whole_chain_on_the_cpu(tmp_path):
         assert summary[key] is not None, key
     assert os.path.exists(summary["example_npz"])
     assert set(summary["timings_s"]) == {
-        "media", "pretrain", "import_jax", "export_port", "video_eval", "video_eval_random",
+        "media", "pretrain", "write_orbax", "jax_resave", "video_eval", "video_eval_random",
         "avpred", "example", "extract"}

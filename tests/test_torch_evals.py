@@ -338,7 +338,9 @@ def test_target_encoder_merge(tmp_path):
     """An AV checkpoint into a video-only encoder: every leaf taken, the two
     audio patch-embed leaves dropped. A deeper encoder: strict raises, and
     allow_missing keeps its init for the missing block. A missing file
-    raises or (allow_missing) returns None; a directory is refused."""
+    raises or (allow_missing) returns None; so does a directory without a
+    committed step. The same checkpoint as a JAX pretrain Orbax directory
+    (the JAX manager's JepaState fields) merges to the same encoder."""
     path, sd = _av_checkpoint(tmp_path)
     enc = Encoder(VIDEO, **ENC)
     out = merge_target_encoder(path, enc)
@@ -365,8 +367,24 @@ def test_target_encoder_merge(tmp_path):
     with pytest.raises(FileNotFoundError, match="allow_missing_checkpoint"):
         merge_target_encoder(gone, enc)
     assert merge_target_encoder(gone, enc, strict=False) is None
-    with pytest.raises(ValueError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="allow_missing_checkpoint"):
         merge_target_encoder(str(tmp_path), enc)
+    assert merge_target_encoder(str(tmp_path), enc, strict=False) is None
+
+    from avjepa_tpu.utils.checkpoint import CheckpointManager as JaxManager
+    from avjepa_tpu.utils.torch_import import encoder_params_from_state_dict
+
+    params = encoder_params_from_state_dict({k: v.numpy() for k, v in sd.items()})
+    ckpt = str(tmp_path / "jepa-ckpt")
+    JaxManager(ckpt).save(2, {"enc_params": params, "target_params": params,
+                              "step": np.asarray(2, np.int32)})
+    enc = Encoder(VIDEO, **ENC)
+    out = merge_target_encoder(ckpt, enc)
+    assert (len(out["missing"]), len(out["mismatched"])) == (0, 0)
+    assert out["dropped"] == ["patch_embed.audio_proj.bias", "patch_embed.audio_proj.weight"]
+    assert all(torch.equal(v, sd[k]) for k, v in enc.state_dict().items())
+    with pytest.raises(ValueError, match="allow_missing_checkpoint"):
+        merge_target_encoder(ckpt, Encoder(VIDEO, **{**ENC, "depth": 3}))
 
 
 @pytest.mark.parametrize("n,batch,shards,index,drop_last",

@@ -215,7 +215,22 @@ def test_feature_layer_norm_matches_jax():
 
 
 def test_unported_apps_and_orbax_dirs_are_refused(tmp_path):
-    with pytest.raises(ValueError, match="Orbax"):
+    """A JAX pretrain Orbax directory (the JAX manager's ``JepaState``
+    fields, vit_tiny) is read: its target encoder equals the JAX params
+    through the state-dict mapping, to the bit; a directory without a
+    committed step raises; the app without a checkpoint is refused."""
+    from avjepa_tpu.utils.checkpoint import CheckpointManager as JaxManager
+
+    layout = jax_load_config(_cfg(tmp_path)).layout()
+    params = jax.device_get(jax_init_encoder_params(jax_make_encoder("vit_tiny", layout),
+                                                    jax.random.key(3)))
+    ckpt = str(tmp_path / "x-ckpt")
+    JaxManager(ckpt).save(4, {"target_params": params, "step": np.asarray(4, np.int32)})
+    got = load_encoder_checkpoint(ckpt)
+    want = encoder_params_to_state_dict(params)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
+    with pytest.raises(FileNotFoundError, match="committed"):
         load_encoder_checkpoint(str(tmp_path))
     d = _cfg(tmp_path, extract={"allow_random": False})
     with pytest.raises(ValueError, match="read_checkpoint"):

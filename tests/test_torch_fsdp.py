@@ -30,7 +30,11 @@ from avjepa_tpu_torch.models.predictor import Predictor
 from avjepa_tpu_torch.parallel import dist, fsdp
 from avjepa_tpu_torch.train import optim
 from avjepa_tpu_torch.train.step import StepConfig, train_step
-from avjepa_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+from avjepa_tpu_torch.utils.checkpoint import (
+    load_train_state,
+    save_train_state,
+    save_train_state_orbax,
+)
 
 # the JAX rule's own threshold (avjepa_tpu/parallel/mesh.py, _FSDP_MIN_SIZE)
 FSDP_MIN_SIZE = 2**17
@@ -202,3 +206,42 @@ def test_one_rank_mesh_step_and_checkpoint_match_unsharded(one_rank_group, tmp_p
     for i, s in got["opt"]["state"].items():
         for k, v in s.items():
             assert torch.equal(back["opt"]["state"][i][k], v), (i, k)
+
+
+def test_one_rank_mesh_resumes_from_orbax(one_rank_group, tmp_path):
+    """An unsharded state after one step, saved as the JAX package's Orbax
+    directory, loads into models sharded over a one-rank mesh through the
+    whole-tensor path of ``load_train_state`` (the AdamW state mapped by
+    name onto the sharded parameters): its .pth.tar then equals the
+    unsharded state's to the bit (params, EMA target, AdamW moments and
+    steps, step). One torch thread, as the other port test modules run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        layout = TokenLayout(**worker.LAYOUT)
+        enc, pred = Encoder(layout, **worker.ENC), Predictor(layout, **worker.PRED)
+        init_encoder_params(enc, 5)
+        init_predictor_params(pred, 6)
+        weights = {"encoder": enc.state_dict(), "predictor": pred.state_dict()}
+        plain = worker.build_state(weights)
+        train_step(plain, optim.ScheduleConfig(**worker.SCHED), StepConfig(**worker.STEP),
+                   **_inputs(30, b=2))
+        save_train_state_orbax(str(tmp_path / "plain-ckpt"), plain)
+        sharded = worker.build_state(weights, one_rank_group)
+        load_train_state(str(tmp_path / "plain-ckpt"), sharded)
+        assert all(fsdp.is_sharded(p) for p in sharded.encoder.parameters())
+        outs = []
+        for state, name in ((plain, "plain"), (sharded, "sharded")):
+            save_train_state(str(tmp_path / f"{name}.pth.tar"), state, epoch=0, loss=0.0,
+                             batch_size=2, lr=0.0)
+            outs.append(torch.load(tmp_path / f"{name}.pth.tar", weights_only=True))
+    finally:
+        torch.set_num_threads(threads)
+    want, got = outs
+    assert want["step"] == got["step"] == 1 and want["opt"]["state"]
+    for key in ("encoder", "predictor", "target_encoder"):
+        assert all(torch.equal(got[key][k], v) for k, v in want[key].items()), key
+    assert sorted(got["opt"]["state"]) == sorted(want["opt"]["state"])
+    for i, s in want["opt"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(got["opt"]["state"][i][k], v), (i, k)

@@ -7,11 +7,12 @@ the port's CLIs: the counterpart of ``tools/run_chain.py``.
   2. pretrain   - ``python -m avjepa_tpu_torch.app.main`` (AV JEPA, worker
                   processes decoding the files); writes
                   <workdir>/pretrain/chain-latest.pth.tar
-  3. roundtrip  - the crossing port -> JAX -> port: the JAX package's
-                  converter (tools/convert_reference_checkpoint.py, in
-                  subprocesses) imports that .pth.tar into an Orbax
-                  checkpoint and exports it back; the target encoder read
-                  back by the port must equal the original to the bit
+  3. roundtrip  - the crossing port -> JAX -> port: the port's Orbax
+                  writer (tools/torch_convert_checkpoint.py) turns that
+                  .pth.tar into the JAX app's <tag>-ckpt, the JAX package's
+                  manager restores it and saves it again (a subprocess),
+                  and the target encoder the port reads from that save
+                  must equal the original to the bit
   4. eval       - ``python -m avjepa_tpu_torch.app.eval_main``: the frozen
                   video-classification probe on the pretrained encoder
   5. control    - the same probe on a random encoder
@@ -21,8 +22,8 @@ the port's CLIs: the counterpart of ``tools/run_chain.py``.
 
 Each stage is a subprocess with its log under <workdir>/logs/, run on
 ``--device`` (default cuda; ``--device cpu`` runs it all on the CPU). The
-crossing needs JAX and Orbax on the host and fails without them; the rest
-imports nothing of JAX. Decoding and writing media need libav
+crossing's middle step needs JAX and Orbax on the host and fails without
+them; the rest imports nothing of JAX. Decoding and writing media need libav
 (``make -C native``). Prints one summary JSON line with the JAX tool's keys.
 The defaults are the JAX tool's CI geometry (vit_tiny, 100 clips, crop 64,
 8 frames, 300 probe epochs); ``--model vit_large --crop 224 --frames 16
@@ -236,8 +237,8 @@ def last_csv_value(path: str, column: str) -> float:
 
 def same_target_encoder(pth: str, other: str) -> int:
     """Asserts that the port reads the same target encoder from the two
-    pretrain ``.pth.tar`` files, entry by entry and to the bit; returns the
-    number of entries."""
+    pretrain checkpoints (``.pth.tar`` files or Orbax directories), entry
+    by entry and to the bit; returns the number of entries."""
     import torch
 
     from avjepa_tpu_torch.utils.checkpoint import load_encoder_checkpoint
@@ -251,24 +252,38 @@ def same_target_encoder(pth: str, other: str) -> int:
     return len(ours)
 
 
-def cross_checkpoint(pth: str, cfg_path: str, workdir: str, ipe: int, timings: dict) -> int:
-    """port -> JAX -> port: the JAX converter imports the port's ``pth``
-    into an Orbax checkpoint under <workdir>/crossing and exports it back to
-    <workdir>/chain_back.pth.tar, each in a subprocess on JAX's CPU backend;
-    the port must read the same target encoder from both
-    (``same_target_encoder``). Returns the number of its entries."""
-    tool = os.path.join(_REPO, "tools", "convert_reference_checkpoint.py")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+def jax_resave(src: str, dst: str) -> int:
+    """The JAX side of the crossing: the JAX package's manager restores the
+    latest step of the Orbax directory ``src`` and saves it again as that
+    step of ``dst``. Needs JAX; ``cross_checkpoint`` runs it in a process
+    of its own. Returns the step."""
+    from avjepa_tpu.utils.checkpoint import CheckpointManager
+
+    mngr = CheckpointManager(src)
+    step = mngr.latest_step()
+    CheckpointManager(dst).save(step, mngr.restore(None, step), force=True)
+    print(f"JAX restored and saved step {step}")
+    return step
+
+
+def cross_checkpoint(pth: str, workdir: str, timings: dict) -> int:
+    """port -> JAX -> port: the port's Orbax writer turns ``pth`` into
+    <workdir>/crossing/port/chain-ckpt; the JAX package's manager restores
+    that, in a subprocess on JAX's CPU backend, and saves it again to
+    <workdir>/crossing/jax/chain-ckpt; the port must read the same target
+    encoder from that directory as from ``pth`` (``same_target_encoder``).
+    Returns the number of its entries."""
     folder = os.path.join(workdir, "crossing")
-    back = os.path.join(workdir, "chain_back.pth.tar")
-    timings["import_jax"] = sh("import_jax", [
-        sys.executable, tool, pth, cfg_path, "--out-folder", folder, "--tag", "chain",
-    ], workdir, env=env)
-    timings["export_port"] = sh("export_port", [
-        sys.executable, tool, "--export", os.path.join(folder, "chain-ckpt"), back,
-        "--ipe", str(ipe),
-    ], workdir, env=env)
-    return same_target_encoder(pth, back)
+    ours, theirs = (os.path.join(folder, side, "chain-ckpt") for side in ("port", "jax"))
+    timings["write_orbax"] = sh("write_orbax", [
+        sys.executable, os.path.join(_REPO, "tools", "torch_convert_checkpoint.py"), pth, ours,
+    ], workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    timings["jax_resave"] = sh("jax_resave", [
+        sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); import "
+        "torch_run_chain as c; c.jax_resave(*sys.argv[1:])", ours, theirs,
+    ], workdir, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return same_target_encoder(pth, theirs)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -485,7 +500,7 @@ def main(argv=None):
 
     # -- 3. the crossing: port -> JAX (Orbax) -> port, bit-exact ----------
     if "roundtrip" in stages:
-        n = cross_checkpoint(ckpt, paths["pretrain"], wd, args.ipe, timings)
+        n = cross_checkpoint(ckpt, wd, timings)
         summary["roundtrip_leaves_exact"] = n
         print(f"[chain] roundtrip: {n} target-encoder entries bit-exact after "
               "port -> JAX -> port", flush=True)
