@@ -59,20 +59,27 @@
 // copied a tile finish it when it lands: qs = T(q * scale) in place (pass
 // 1), a ks = T(k * scale) copy (pass 2), lse into log2 units. Every score
 // takes one MUFU ex2 in log2 units (p_ds2).
-// Products, d <= 64 (d zero-padded to 32 or 64 in shared memory and
+// Products, d <= 80 (d zero-padded to 32, 64 or 80 in shared memory and
 // registers only, so d = 24 runs every product at 32): wgmma, two
 // warpgroups of 64 rows a block. S^T, dP^T, S and dP are SS (both operands
 // K-major in swizzled tiles, as the forward's Q.K^T); dV, dK and dQ take p^T,
 // ds^T or ds from registers and dO, qs or ks as an MN-major B operand (as
-// the forward's P.V). A 64-wide tile runs as two 32-wide parts where the
-// registers freed let more blocks fit a SM (pass 1 at d = 64, pass 2 at
-// d <= 32). d > 64 (d padded to a multiple of 16): mma.sync m16n8k16 fed by
-// ldmatrix, 4 warps of 16 rows a block, 32-query tiles in pass 1. Only the
-// d real columns are written. f32 inputs (exact comparisons, not speed)
-// take simple FMA kernels over 32 x 32 shared-memory tiles with the
-// accurate expf. Not yet used: TMA and mbarriers, warp specialisation,
-// overlap of one tile's products with another's exponentials, wgmma at
-// d > 64.
+// the forward's P.V). d = 80 runs unpadded in wgmma.cuh's 80-column layout
+// (a 128-byte-swizzled 64-column block beside a 32-byte-swizzled 16-column
+// one): SS products over 4 + 1 k16 steps, dV, dK and dQ as an n64 and an
+// n16 product. A 64-wide tile runs in parts where the registers freed let
+// two or three blocks fit a SM: pass 1 in 32-query parts at d = 64, pass 2
+// in 32-key parts at d <= 32 and d = 80; K2's pass 2 at d = 80 runs a
+// 2-slot ring (3 slots of K, V and ks would leave one block a SM). Pass 1
+// at d = 80 (dK and dV hold 80 f32 registers a thread) runs one block a SM
+// on whole 64-query tiles, which two blocks' register cap would spill.
+// d = 96 and 128 (no config of the repo uses them; d padded to a multiple
+// of 16): mma.sync m16n8k16 fed by ldmatrix, 4 warps of 16 rows a block,
+// 32-query tiles in pass 1. Only the d real columns are written. f32 inputs
+// (exact comparisons, not speed) take simple FMA kernels over 32 x 32
+// shared-memory tiles with the accurate expf. Not yet used: TMA and
+// mbarriers, warp specialisation, overlap of one tile's products with
+// another's exponentials, wgmma at d > 80.
 
 #include "attention_common.cuh"
 #include "wgmma.cuh"
@@ -158,7 +165,7 @@ __device__ __forceinline__ float2 row_stats(float lse, bool in) {
   return make_float2(nl, SOFTMAX_CLAMP * LOG2E + nl);
 }
 
-// Tile geometry of the mma.sync kernels (d > 64): DK = d zero-padded to a
+// Tile geometry of the mma.sync kernels (d > 80): DK = d zero-padded to a
 // multiple of 16 (the k16 step of S and dP; also the n of dK, dV and dQ),
 // 4 warps of 16 rows each. Shared tiles are [rows][DK] with a row stride of
 // DK + 8 elements (ldmatrix reads 8 rows without bank conflicts).
@@ -303,7 +310,7 @@ __device__ __forceinline__ void grads_by_query(float (&s)[NT][4], float (&dp)[NT
 constexpr int NSTAGE = 3;  // tiles in a cp.async ring: two in flight, one read
 
 // pass 1 on mma.sync: dk, dv of 64 keys, over 32-query tiles (dK, dV, S^T
-// and dP^T of 64 keys at d > 64 hold ~2 * DK + 32 f32 registers a thread)
+// and dP^T of 64 keys at d > 80 hold ~2 * DK + 32 f32 registers a thread)
 template <typename T, bool CLAMPED, int DK>
 __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_kernel(const Params prm) {
   using G = Geo<DK>;
@@ -559,7 +566,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(const Params prm)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16 at d <= 64: wgmma
+// bf16 / f16 at d <= 80: wgmma
 // ---------------------------------------------------------------------------
 
 // cp.async a [ROWS][DP] tile (rows from `row0`; zero past N and past d)
@@ -610,11 +617,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 // as the forward's Q.K^T); dV += P^T.dO and dK += dS^T.Qs take P^T and dS^T
 // from registers and dO, Qs as MN-major B operands (as the forward's P.V).
 template <typename T, bool CLAMPED, int DP>
-__global__ void __launch_bounds__(WG_THREADS, 2) attn_bwd_dkdv_wgmma_kernel(const Params prm) {
+__global__ void __launch_bounds__(WG_THREADS, DP == 80 ? 1 : 2)
+attn_bwd_dkdv_wgmma_kernel(const Params prm) {
   using L = TileLayout<DP>;
-  // queries a part of the tile (see the loop): 32 at d=64, where dK and dV
-  // take 64 registers, so that two blocks fit a SM
-  constexpr int SUB = DP <= 32 ? 64 : 32;
+  // queries a part of the tile (see the loop): 32 at d = 64, where dK and
+  // dV take 64 registers, so that two blocks fit a SM. At d = 80 they take
+  // 80, and two blocks spilled in 16- and 32-query parts alike (48-296
+  // bytes on an H100's ptxas): one block a SM runs whole 64-query tiles in
+  // 215-232 registers without spills, the fastest pass 1 measured (PERF.md)
+  constexpr int SUB = DP == 64 ? 32 : 64;
   constexpr int QT = 64, KV_BYTES = WG_ROWS * DP * 2, Q_BYTES = QT * DP * 2;
   constexpr int SLOT = 2 * Q_BYTES;  // q | dO
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -729,11 +740,11 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attn_bwd_dkdv_wgmma_kernel(cons
         wgmma_fence();
 #pragma unroll
         for (int kt = 0; kt < SUB / 16; ++kt) {
-          WgmmaRS<T, DP>::run(dv, pa[kt], L::mn_major(so_addr, SUB / 16 * part + kt));
+          L::template rs<T>(dv, pa[kt], so_addr, SUB / 16 * part + kt);
         }
 #pragma unroll
         for (int kt = 0; kt < SUB / 16; ++kt) {
-          WgmmaRS<T, DP>::run(dk, sa[kt], L::mn_major(sq_addr, SUB / 16 * part + kt));
+          L::template rs<T>(dk, sa[kt], sq_addr, SUB / 16 * part + kt);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -765,6 +776,16 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attn_bwd_dkdv_wgmma_kernel(cons
   }
 }
 
+// ring slots of pass 2 on wgmma: 3, or 2 where two blocks' tiles (plus
+// ~3 KB each of biases, tile list and alignment) would not fit a SM's 228
+// KB with 3 (K2 at d = 80, whose slot holds K, V and ks)
+template <bool CLAMPED, int DP>
+__host__ __device__ constexpr int wg_dq_stages() {
+  constexpr int tiles = CLAMPED ? 3 : 2;
+  constexpr int bytes = 2 * (2 * WG_ROWS + NSTAGE * tiles * KEY_TILE) * DP;
+  return 2 * (bytes + 3 * 1024) <= 228 * 1024 ? NSTAGE : 2;
+}
+
 // pass 2 on wgmma: dq of 128 queries (64 a warpgroup) over the block's
 // listed key tiles. S = Qs.K^T and dP = dO.V^T are SS; dQ += dS.Ks takes dS
 // from registers and Ks as the MN-major B operand.
@@ -773,19 +794,20 @@ __global__ void __launch_bounds__(WG_THREADS, DP <= 32 ? 3 : 2)
 attn_bwd_dq_wgmma_kernel(const Params prm) {
   using L = TileLayout<DP>;
   // keys a part of the tile (see the loop): 32 at d <= 32, so that three
-  // blocks fit a SM
-  constexpr int SUB = DP <= 32 ? 32 : 64;
+  // blocks fit a SM, and at d = 80, where dQ takes 40 registers
+  constexpr int SUB = DP == 64 ? 64 : 32;
   constexpr int KT = KEY_TILE, Q_BYTES = WG_ROWS * DP * 2, K_BYTES = KT * DP * 2;
   constexpr int TILES = CLAMPED ? 3 : 2;  // K, V and (K2) ks = T(k * scale)
   constexpr int SLOT = TILES * K_BYTES;
+  constexpr int STAGES = wg_dq_stages<CLAMPED, DP>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* sq = smem;
   unsigned char* so = sq + Q_BYTES;
   unsigned char* ring = so + Q_BYTES;
-  float* sbias = reinterpret_cast<float*>(ring + NSTAGE * SLOT);  // [NSTAGE][KT]
-  int* list = reinterpret_cast<int*>(sbias + NSTAGE * KT);
+  float* sbias = reinterpret_cast<float*>(ring + STAGES * SLOT);  // [STAGES][KT]
+  int* list = reinterpret_cast<int*>(sbias + STAGES * KT);
 
   const int N = prm.N, d = prm.d;
   const int q0 = blockIdx.x * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -806,7 +828,7 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
 
   auto load_kv = [&](int i) {
     if (i < ntiles) {
-      const int e = list[i], k0 = (e >> 1) * KT, slot = i % NSTAGE;
+      const int e = list[i], k0 = (e >> 1) * KT, slot = i % STAGES;
       unsigned char* sk = ring + slot * SLOT;
       copy_wg_tile<T, DP, WG_THREADS, KT>(sk, kg, prm.k_sn, k0, N, d);
       copy_wg_tile<T, DP, WG_THREADS, KT>(sk + K_BYTES, vg, prm.v_sn, k0, N, d);
@@ -818,7 +840,7 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
     cp_async_commit();
   };
 #pragma unroll
-  for (int i = 0; i < NSTAGE - 1; ++i) load_kv(i);
+  for (int i = 0; i < STAGES - 1; ++i) load_kv(i);
 
   float2 stat[2];
   float delta[2];
@@ -828,7 +850,7 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
     stat[r] = row_stats(row < N ? prm.lse[bh * N + row] : 0.0f, row < N);
     delta[r] = row < N ? prm.delta[bh * N + row] : 0.0f;
   }
-  cp_async_wait<NSTAGE - 1>();  // the q and dO tiles (this thread's copies)
+  cp_async_wait<STAGES - 1>();  // the q and dO tiles (this thread's copies)
   if (CLAMPED) scale_wg_tile<T, DP, WG_THREADS, WG_ROWS>(sq, sq, prm.scale);  // qs, once
 
   float dq[DP / 2];
@@ -838,8 +860,8 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
   const int q_row = 64 * (warp / 4);  // this warpgroup's first query of the block
 
   for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<NSTAGE - 2>();
-    const int e = list[i], k0 = (e >> 1) * KT, slot = i % NSTAGE;
+    cp_async_wait<STAGES - 2>();
+    const int e = list[i], k0 = (e >> 1) * KT, slot = i % STAGES;
     unsigned char* sk = ring + slot * SLOT;
     float* sb = sbias + slot * KT;
     if (CLAMPED) scale_wg_tile<T, DP, WG_THREADS, KT>(sk + 2 * K_BYTES, sk, prm.scale);
@@ -849,7 +871,7 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
     }
     fence_proxy_async();
     __syncthreads();
-    load_kv(i + NSTAGE - 1);
+    load_kv(i + STAGES - 1);
     const uint32_t sk_addr = smem_addr(sk), sv_addr = sk_addr + K_BYTES;
 
     const uint32_t kb_addr = CLAMPED ? sk_addr + 2 * K_BYTES : sk_addr;  // ks (K4: k)
@@ -886,7 +908,7 @@ attn_bwd_dq_wgmma_kernel(const Params prm) {
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < SUB / 16; ++kt) {
-        WgmmaRS<T, DP>::run(dq, sa[kt], L::mn_major(kb_addr, SUB / 16 * part + kt));
+        L::template rs<T>(dq, sa[kt], kb_addr, SUB / 16 * part + kt);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1104,9 +1126,10 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   cudaError_t err = launch_kernel(attn_bwd_dkdv_wgmma_kernel<T, CLAMPED, DP>,
                                   grid_of(p, WG_ROWS), smem1, p, stream, WG_THREADS);
   if (err != cudaSuccess) return err;
+  constexpr int STAGES = wg_dq_stages<CLAMPED, DP>();
   const int ntiles = (p.N + KEY_TILE - 1) / KEY_TILE;
-  const size_t smem2 = 2 * (2 * WG_ROWS + NSTAGE * (CLAMPED ? 3 : 2) * KEY_TILE) * DP +
-                       sizeof(float) * NSTAGE * KEY_TILE + sizeof(int) * ntiles + 1024;
+  const size_t smem2 = 2 * (2 * WG_ROWS + STAGES * (CLAMPED ? 3 : 2) * KEY_TILE) * DP +
+                       sizeof(float) * STAGES * KEY_TILE + sizeof(int) * ntiles + 1024;
   return launch_kernel(attn_bwd_dq_wgmma_kernel<T, CLAMPED, DP>, grid_of(p, WG_ROWS), smem2, p,
                        stream, WG_THREADS);
 }
@@ -1115,7 +1138,7 @@ template <typename T, bool CLAMPED>
 cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
   if (p.d <= 32) return launch_wgmma<T, CLAMPED, 32>(p, stream);
   if (p.d <= 64) return launch_wgmma<T, CLAMPED, 64>(p, stream);
-  if (p.d <= 80) return launch_mma<T, CLAMPED, 80>(p, stream);
+  if (p.d <= 80) return launch_wgmma<T, CLAMPED, 80>(p, stream);
   if (p.d <= 96) return launch_mma<T, CLAMPED, 96>(p, stream);
   return launch_mma<T, CLAMPED, 128>(p, stream);
 }

@@ -31,8 +31,11 @@
 //   (SS); O += P.V is wgmma m64nDPk16 with P from registers (the S
 //   accumulator, exp2'ed and rounded to T, is exactly the A fragment) and V
 //   read as an MN-major operand (the transpose flag). Tiles are stored as
-//   wgmma reads them (TileLayout): 128-byte swizzled rows for d = 64 and
-//   two 64-element column blocks for d = 128, 64-byte rows for d = 32.
+//   wgmma reads them (TileLayout): 128-byte swizzled rows for d = 64, two
+//   64-element column blocks for d = 128, 64-byte rows for d = 32, and for
+//   d = 80 a 64-column block of 128-byte rows beside a 16-column block of
+//   32-byte rows (32-byte swizzle): S takes 4 + 1 k16 steps and P.V an n64
+//   and an n16 product, so no product runs over padding.
 // - A block first lists its 64-key tiles: a tile whose keys are all masked
 //   or past N is left out (skipped, never read); a "full" tile (every key
 //   below N with bias exactly 0) takes a path with no bias add. With no mask
@@ -47,15 +50,16 @@
 //   running max in log2 units. lse is written back in natural units; a K3
 //   row that saw no valid key writes -1e30 + log(1e-30), the plain
 //   version's value, exactly.
-// - head_dim is zero-padded to 32, 64 or 128 in shared memory and registers
-//   only (d = 24 runs as 32, d = 80 as 128), never in device memory.
+// - head_dim is zero-padded to 32, 64, 80 or 128 in shared memory and
+//   registers only (d = 24 runs as 32), never in device memory.
 // f32 inputs (exact comparisons, not speed) take a simple kernel: shared
 // memory tiles and FMA loops, accurate expf.
 //
 // Each warpgroup runs S, waits, runs its softmax, runs PV, waits, and the
 // two warpgroups of a block meet at every tile's barrier, so the tensor
 // cores idle during a block's softmax unless the SM's other block fills
-// them. Measured on an H100 (PERF.md): overlapping the softmax with
+// them: two blocks a SM at d = 64 and 80, three at d <= 32, one at d = 128.
+// Measured on an H100 (PERF.md): overlapping the softmax with
 // the previous tile's PV in the same warpgroup, 1 or 4 warpgroups a block,
 // or a shallower ring did not help. Not yet used: TMA and mbarriers, warp
 // specialisation with a producer warp, warpgroup ping-pong, setmaxnreg,
@@ -95,13 +99,14 @@ constexpr int NSTAGE = 3;               // K/V tiles in the cp.async ring
 
 // blocks a SM, which caps registers: 3 at DP = 32 (o is 16 registers a
 // thread; on an H100 the third block takes the d = 24 calls from 0.58 to
-// 0.51 ms), 2 at DP = 64 (3 would spill), 1 at DP = 128
-constexpr int fwd_blocks_per_sm(int dp) { return dp <= 32 ? 3 : dp <= 64 ? 2 : 1; }
+// 0.51 ms), 2 at DP = 64 (3 would spill) and DP = 80 (o is 40 registers;
+// ~84 KB of shared memory a block), 1 at DP = 128
+constexpr int fwd_blocks_per_sm(int dp) { return dp <= 32 ? 3 : dp <= 80 ? 2 : 1; }
 
 // CLAMPED = K1 numerics (scale folded into q, no-max clamped softmax);
-// otherwise K3 numerics (scale on s, running max). DP = d padded to 32, 64
-// or 128. Two warpgroups a block, each 64 query rows (warp w of the block
-// owns rows 16w..16w+15). Logits are kept in log2 units: x = s * log2(e)
+// otherwise K3 numerics (scale on s, running max). DP = d padded to 32, 64,
+// 80 or 128. Two warpgroups a block, each 64 query rows (warp w of the
+// block owns rows 16w..16w+15). Logits are kept in log2 units: x = s * log2(e)
 // (K1) or s * scale * log2(e) (K3), plus bias * log2(e), and p = ex2(...).
 //
 // The wgmma accumulators are laid out as mma.sync m16n8 tiles (wgmma.cuh):
@@ -272,7 +277,7 @@ attn_fwd_wgmma_kernel(const Params prm) {
     }
     wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < BK / 16; ++kt) WgmmaRS<T, DP>::run(o, pa[kt], L::mn_major(sv_addr, kt));
+    for (int kt = 0; kt < BK / 16; ++kt) L::template rs<T>(o, pa[kt], sv_addr, kt);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -431,6 +436,7 @@ template <typename T, bool CLAMPED>
 cudaError_t launch_16bit(const Params& p, cudaStream_t stream) {
   if (p.d <= 32) return launch_wgmma<T, CLAMPED, 32>(p, stream);
   if (p.d <= 64) return launch_wgmma<T, CLAMPED, 64>(p, stream);
+  if (p.d <= 80) return launch_wgmma<T, CLAMPED, 80>(p, stream);
   return launch_wgmma<T, CLAMPED, 128>(p, stream);
 }
 

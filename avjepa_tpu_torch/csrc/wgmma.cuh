@@ -7,6 +7,8 @@
 //   WgmmaSS<T>::n32:  the same with 32 rows of B, d[16]
 //   WgmmaRS<T, N>::run: d[N/2] += A (64 x 16, registers) . B (16 x N, shared,
 //                     MN-major: the transpose flag)  O += P . V
+//   TileLayout<DP>::rs: WgmmaRS over a whole tile row of DP columns (at
+//                     DP = 80 an n64 and an n16 product into one d[40])
 // Accumulator layout of m64nNk16 (thread = 32 * warp + 4 * g + t): d[4j],
 // d[4j+1] are row 16 * warp + g, columns 8j + 2t and 8j + 2t + 1; d[4j+2],
 // d[4j+3] are row 16 * warp + g + 8, same columns: each warp's 16 rows are
@@ -21,9 +23,10 @@
 
 namespace {
 
-// swizzle mode of a descriptor (bits 62-63): 128-byte or 64-byte rows
+// swizzle mode of a descriptor (bits 62-63): 128-, 64- or 32-byte rows
 constexpr int SWIZZLE_128B = 1;
 constexpr int SWIZZLE_64B = 2;
+constexpr int SWIZZLE_32B = 3;
 
 // shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (all in 16-byte units), swizzle mode
@@ -73,11 +76,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+template <typename T> struct WgmmaSS;
+template <typename T, int N> struct WgmmaRS;
+
 // Shared-memory layout of a [rows][DP] tile, as wgmma reads it: column
 // blocks of ROWB bytes a row (64 elements, or 32 when DP = 32), each block
 // [rows][ROWB] with its 16-byte chunks swizzled (128-byte rows: chunk c of
 // row r sits at c ^ (r % 8); 64-byte rows: at c ^ ((r / 2) % 4)). A tile
-// starts on a 1024-byte boundary.
+// starts on a 1024-byte boundary. DP = 80 has a layout of its own (below).
 template <int DP>
 struct TileLayout {
   static constexpr int ROWB = DP == 32 ? 64 : 128;
@@ -97,15 +103,44 @@ struct TileLayout {
     return make_desc(base + (e / EPR) * rows * ROWB + first_row * ROWB + (e % EPR) * 2, 16,
                      8 * ROWB, SWIZZLE);
   }
-  // descriptor of V (64 keys x DP) as the MN-major B operand: keys
-  // 16kt..16kt+15 (8-key groups 8 * ROWB apart, column blocks 64 * ROWB)
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t base, int kt) {
-    return make_desc(base + 16 * kt * ROWB, 64 * ROWB, 8 * ROWB, SWIZZLE);
+  // d += a . B, B = rows 16kt..16kt+15 of a 64-row tile at `base` (V, dO,
+  // qs or ks) as the MN-major operand (8-row groups 8 * ROWB apart, column
+  // blocks 64 * ROWB)
+  template <typename T>
+  static __device__ __forceinline__ void rs(float (&d)[DP / 2], const uint32_t (&a)[4],
+                                            uint32_t base, int kt) {
+    WgmmaRS<T, DP>::run(d, a, make_desc(base + 16 * kt * ROWB, 64 * ROWB, 8 * ROWB, SWIZZLE));
   }
 };
 
-template <typename T> struct WgmmaSS;
-template <typename T, int N> struct WgmmaRS;
+// DP = 80 (d = 80 unpadded): a 160-byte row is no swizzle period, so a tile
+// is a [rows][64] block of 128-byte rows (128-byte swizzle) followed by a
+// [rows][16] block of 32-byte rows (32-byte swizzle: chunk c of row r sits
+// at c ^ ((r / 4) % 2)). A product over DP runs as 4 k16 steps in the first
+// block and 1 in the second; rs, over a 64-row tile's 80 columns, as an
+// n64 and an n16 product whose accumulators, side by side, are the n80
+// layout. (Five 16-column blocks under the 32-byte swizzle, with one n80
+// product, ran K1 at ViT-H's target shape ~4% slower on an H100.)
+template <>
+struct TileLayout<80> {
+  static __device__ __forceinline__ int offset(int r, int c, int rows) {
+    return c < 8 ? r * 128 + ((c ^ (r & 7)) << 4)
+                 : rows * 128 + r * 32 + (((c - 8) ^ ((r >> 2) & 1)) << 4);
+  }
+  static __device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int first_row,
+                                                     int kk) {
+    return kk < 4 ? make_desc(base + first_row * 128 + 32 * kk, 16, 8 * 128, SWIZZLE_128B)
+                  : make_desc(base + rows * 128 + first_row * 32, 16, 8 * 32, SWIZZLE_32B);
+  }
+  template <typename T>
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4],
+                                            uint32_t base, int kt) {
+    WgmmaRS<T, 64>::run(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                        make_desc(base + 16 * kt * 128, 64 * 128, 8 * 128, SWIZZLE_128B));
+    WgmmaRS<T, 16>::run(*reinterpret_cast<float(*)[8]>(&d[32]), a,
+                        make_desc(base + 64 * 128 + 16 * kt * 32, 64 * 32, 8 * 32, SWIZZLE_32B));
+  }
+};
 
 template <> struct WgmmaSS<__nv_bfloat16> {
   // d (+)= A . B^T, m64n32k16 (B: 32 rows)
@@ -135,6 +170,21 @@ template <> struct WgmmaSS<__nv_bfloat16> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct WgmmaRS<__nv_bfloat16, 16> {
+  // d += A . B, m64n16k16, B MN-major (transposed)
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
 
@@ -222,6 +272,21 @@ template <> struct WgmmaSS<__half> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct WgmmaRS<__half, 16> {
+  // d += A . B, m64n16k16, B MN-major (transposed)
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
 

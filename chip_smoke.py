@@ -13,18 +13,19 @@ exits non-zero:
      all started together;
   3. each kernel against its plain PyTorch version on the card: the forward
      kernels in bf16, f16 and f32 at the serving shapes (head_dim 24, 64 and
-     80, ragged N, an empty batch row, N = 4608 at 80, a tensor rank's 8
-     heads of 24, 64 and 80), with their registers and spills from the build
-     log; the backward kernels in bf16 and f32 at the training slice's
-     shapes and at head_dim 24, 64, 80 and 128, N = 4608, 8 heads, with the
-     step's prefix masks, sentinel tails, an empty batch row, ragged N and
-     saturated logits, and three runs of each giving the same bits; the f32
-     backward kernels handed the plain delta, equal to the plain versions
-     to the bit; then
-     each kernel's time (median of 5 rounds) beside its plain version's, one
-     PyTorch library call's (scaled_dot_product_attention, forward or
-     backward), its bound and, for the backward kernels, the floor of their
-     exponentials;
+     80, ragged N, an empty batch row, N = 4608 at 80 with random keys and
+     with vith16_384.yaml's context masks, a tensor rank's 8 heads of 24, 64
+     and 80), with their registers and spills from the build log (failing if
+     a head_dim 80 kernel spills); the backward kernels in bf16 and f32 (and
+     f16 at head_dim 80) at the training slice's shapes and at head_dim 24,
+     64, 80 and 128, N = 4608 (a sentinel tail; vith16_384's context
+     masks), 8 heads, with the step's prefix masks, sentinel tails, an empty
+     batch row, ragged N and saturated logits, and three runs of each giving
+     the same bits; the f32 backward kernels handed the plain delta, equal
+     to the plain versions to the bit; then each kernel's time (median of
+     5 rounds) beside its plain version's, one PyTorch library call's
+     (scaled_dot_product_attention, forward or backward), its bound and,
+     for the backward kernels, the floor of their exponentials;
   4. the extract app through its CLI entry: ViT-L/16 AV, bf16, batch 24,
      96 synthetic clips of 16x224^2 video + 128x192 mel (1664 tokens), from
      a random encoder; then vit_tiny (3 heads, the classic kernel) for one
@@ -83,11 +84,16 @@ exits non-zero:
      and K1/K2 held against their plain versions and timed at the step's
      shapes beside SDPA and their bounds; (b)
      two gloo ranks on the one card at batch 12 each, under tpu.mesh_fsdp:
-     2 (the models sharded by FSDP2) and under tpu.mesh_data: 2, on (a)'s
+     2 (the models sharded by FSDP2) and under tpu.mesh_data: 2, both
+     worlds at once, on (a)'s
      batch: losses and grad norms against each other and (a), each rank's
-     slice of the weights to the bit, each rank's peak memory.
-     ``tools/torch_fsdp_cards.py`` runs the same config over NCCL on four
-     cards (not part of this script's run);
+     slice of the weights to the bit, each rank's peak memory; (c)
+     vith16_384.yaml as it stands (4608 tokens; batch 24, which must fit;
+     remat; synthetic clips): the step ms over 2
+     rounds, peak memory, K1/K2 launches, the profiled step's head_dim 80
+     attention shares, and K1/K2 at its d = 80 shapes against their plain
+     versions (2 rows) and SDPA. ``tools/torch_fsdp_cards.py`` runs
+     vith16.yaml over NCCL on four cards (not part of this script's run);
  14. ViT-H under tpu.mesh_tensor: 2 (each block's heads and MLP width cut
      over two gloo ranks on the one card, which run one batch of 4): two
      steps against the unsharded step in this process on the same rows of
@@ -165,9 +171,10 @@ TOL = {"bfloat16": (2e-2, 1e-3), "float16": (1e-2, 1e-3), "float32": (1e-4, 1e-4
 # max|plain|. bf16: the two share every rounding point (q*scale, k*scale, p and
 # ds rounded to bf16 before their products, outputs rounded once), but their
 # f32 sums run in other orders, which can move one rounding of p or ds by a
-# bf16 ulp (2^-8 relative) and an output by an ulp: 2e-2. f32: sums over up to
-# 1664 keys in other orders, and ds = p * (dp - delta) cancels: 1e-4.
-BWD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# bf16 ulp (2^-8 relative) and an output by an ulp: 2e-2. f16: the same with
+# f16's ulp (2^-11 relative), with TOL's ratio to bf16: 1e-2. f32: sums over
+# up to 1664 keys in other orders, and ds = p * (dp - delta) cancels: 1e-4.
+BWD_REL_TOL = {"bfloat16": 2e-2, "float16": 1e-2, "float32": 1e-4}
 # the backward wrappers' delta kernel against torch's attention_delta,
 # relative to max|plain|: both sum d <= 128 exact f32 products in f32, in
 # other orders
@@ -266,18 +273,18 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def print_resources(prefix: str = "attn_fwd") -> None:
-    """Registers, shared memory and spills of each kernel whose name holds
-    ``prefix`` (the forward attention kernels by default), from the build
-    log (nvcc -Xptxas -v), demangled where cu++filt is found."""
+def kernel_resources(prefix: str) -> list[tuple[str, str]]:
+    """(kernel, ptxas line) for the registers, shared memory and spills of
+    each kernel whose name holds ``prefix``, from the build log (nvcc -Xptxas
+    -v), demangled where cu++filt is found: ``attn_fwd_wgmma_kernel<bf16,
+    true, 80>`` and the like. Empty if the library was built by another run."""
     from pathlib import Path
 
     from avjepa_tpu_torch.ops._build import find_nvcc, load_library
 
     log = Path(load_library()._name).with_suffix(".log")
     if not log.exists():
-        print(f"build log {log.name} not found (library built by another run)")
-        return
+        return []
     name, lines = None, []
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
@@ -291,11 +298,29 @@ def print_resources(prefix: str = "attn_fwd") -> None:
         pretty = dict(zip(names, out.stdout.splitlines()))
     else:
         pretty = {}
+    labelled = []
     for n, line in lines:
         label = re.sub(r"\(bool\)1", "true", pretty.get(n, n))
         label = re.sub(r"\(bool\)0|\(int\)|^void |<unnamed>::|\(anonymous namespace\)::", "",
                        label.replace("(bool)0", "false"))
-        print(f"  ptxas {label.split('(')[0]}: {line}")
+        labelled.append((label.split("(")[0], line))
+    return labelled
+
+
+def print_resources(prefix: str = "attn_fwd") -> None:
+    """Registers, shared memory and spills of each kernel whose name holds
+    ``prefix`` (the forward attention kernels by default), from the build
+    log; raises if a head_dim 80 instance (``<..., 80>``) spills: those are
+    the ViT-H path's, designed to run two blocks a SM without spills."""
+    lines = kernel_resources(prefix)
+    if not lines:
+        print("  build log not found (library built by another run)")
+    for label, line in lines:
+        print(f"  ptxas {label}: {line}")
+    spills = [(label, line) for label, line in lines
+              if label.endswith(", 80>") and re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        raise AssertionError(f"head_dim 80 kernels spill: {spills}")
 
 
 def check_kernels() -> dict:
@@ -326,6 +351,7 @@ def check_kernels() -> dict:
         return err
 
     main_err = {}
+    vith384 = vith384_context_masks(2)
     print("kernels vs plain versions:")
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         # K1, packed qkv: (B, N, H, d, masked); N(0, 1) inputs keep the
@@ -337,6 +363,9 @@ def check_kernels() -> dict:
             (2, 200, 16, 64, False),    # ragged N
             (4, 1664, 16, 80, True),    # vit_huge geometry (head_dim 80 packs)
             (2, 4608, 16, 80, True),    # vith16_384: 8 x 24 x 24 video tokens
+            # vith16_384's context over all 4608 tokens, keys masked by its
+            # two mask configs' context masks
+            (2, 4608, 16, 80, "vith16_384"),
             # a tensor rank's 8 of 16 heads (mesh_tensor: 2): the predictor,
             # ViT-L and ViT-H
             (8, 1408, 8, 24, True),
@@ -345,14 +374,16 @@ def check_kernels() -> dict:
         ):
             qkv = randn((b, n, 3 * h * d), dtype)
             mask = None
-            if masked:
+            if masked == "vith16_384":
+                mask = vith384
+            elif masked:
                 mask = torch.rand((b, n), generator=gen, device="cuda") < 0.7
                 mask[0] = False
             got = fa.flash_attention_qkv_fwd(qkv, h, mask)
             torch.cuda.synchronize()
             err = compare(f"attn_fwd_packed B={b} N={n} H={h} d={d} masked={masked}",
                           dtype, got, fa.flash_attention_qkv_ref(qkv, h, mask))
-            if masked and got[0][0].abs().max().item() != 0.0:
+            if masked is True and got[0][0].abs().max().item() != 0.0:
                 raise AssertionError("attn_fwd_packed: a fully-masked row is not 0")
             if dtype == torch.bfloat16 and (n, d, masked) == (1664, 64, False):
                 main_err["fwd_packed"] = err
@@ -408,13 +439,33 @@ def _key_mask(gen, b: int, n: int, kind):
     return mask
 
 
+def vith384_context_masks(batch: int):
+    """[batch, 4608] bool key masks on the card: vith16_384.yaml's context
+    over all its tokens (the tokens each mask config keeps, uncompacted),
+    rows alternating between its two mask configs, drawn by its collator
+    with its seed."""
+    import numpy as np
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.masks.multiblock3d import make_mask_collator
+
+    cfg = load_config(_pretrain_cfg("vith16_384.yaml", tempfile.gettempdir()))
+    collator = make_mask_collator(cfg.data.mask_type or cfg.tpu.mask_type, cfg.mask,
+                                  cfg.layout(), base_seed=cfg.meta.seed)
+    sets = collator(batch)
+    enc = np.stack([sets[i % len(sets)].enc[i] for i in range(batch)])
+    return torch.from_numpy(enc).cuda()
+
+
 def check_bwd_kernels() -> dict:
-    """Each backward kernel against its plain version, bf16 and f32: at the
-    training slice's shapes, at head_dim 24, 64, 80 (vit_huge) and 128, at
-    vith16_384's 4608 tokens, with the step's prefix masks, sentinel tails,
-    random keys with an empty batch row, ragged N and saturated logits; and
-    three runs of each on the same inputs give the same bits. Returns the
-    bf16 max abs error at the main shape of each."""
+    """Each backward kernel against its plain version, bf16 and f32 (and
+    f16 at head_dim 80): at the training slice's shapes, at head_dim 24, 64,
+    80 (vit_huge) and 128, at vith16_384's 4608 tokens (with a sentinel tail,
+    and with its context's key masks), with the step's prefix masks,
+    sentinel tails, random keys with an empty batch row, ragged N and
+    saturated logits; and three runs of each on the same inputs give the
+    same bits. Returns the bf16 max abs error at the main shape of each."""
     import torch
 
     from avjepa_tpu_torch.ops import flash_attention as fa
@@ -459,8 +510,10 @@ def check_bwd_kernels() -> dict:
         print(f"  {name}: bit-identical over 3 runs ok")
 
     main_err = {}
+    vith384 = vith384_context_masks(2)
     print("backward kernels vs plain versions:")
-    for dtype in (torch.bfloat16, torch.float32):
+    # f16 at head_dim 80 only (ViT-H's kernels): bf16 and f32 cover the rest
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         # K2, packed qkv: (label, B, N, H, d, mask)
         for label, b, n, h, d, kind in (
             ("context", 24, 512, 16, 64, "tail"),
@@ -470,15 +523,18 @@ def check_bwd_kernels() -> dict:
             ("vit_tiny predictor", 48, 1408, 3, 128, "random"),
             ("vit_huge context", 4, 1664, 16, 80, "random"),
             ("vith16_384", 2, 4608, 16, 80, "tail"),
+            ("vith16_384 context", 2, 4608, 16, 80, "vith16_384"),
             ("ragged", 2, 200, 16, 64, None),
             # a tensor rank's 8 of 16 heads (mesh_tensor: 2)
             ("tensor predictor", 8, 1408, 8, 24, "prefix"),
             ("tensor vit_large context", 8, 512, 8, 64, "random"),
             ("tensor vit_huge context", 8, 512, 8, 80, "prefix"),
         ):
+            if dtype == torch.float16 and d != 80:
+                continue
             qkv = randn((b, n, 3 * h * d), dtype)
             dout = randn((b, n, h * d), dtype)
-            mask = _key_mask(gen, b, n, kind)
+            mask = vith384 if kind == "vith16_384" else _key_mask(gen, b, n, kind)
             out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
 
             def run():
@@ -505,33 +561,36 @@ def check_bwd_kernels() -> dict:
                 main_err["bwd_packed"] = err
             del qkv, dout, out, lse, got
         # K2 with saturated logits: query rows 0-7 see every logit above the
-        # clamp, so their ds, and so their dq, is exactly 0
-        b, n, h, d = 2, 256, 4, 32
-        c = h * d
-        qkv = randn((b, n, 3 * c), dtype)
-        qkv[:, :, c:2 * c] = qkv[:, :, c:2 * c].abs() + 0.5
-        qkv[:, :8, :c] = 32.0  # s >= 32 * 32**-0.5 * 32 * 0.5 > 80
-        dout = randn((b, n, c), dtype)
-        out, lse = fa.flash_attention_qkv_fwd(qkv, h)
-        got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h)
-        s = (qkv[:, :, :c].float() * d**-0.5).reshape(b, n, h, d)
-        s = torch.einsum("bqhd,bkhd->bhqk", s, qkv[:, :, c:2 * c].float().reshape(b, n, h, d))
-        if not bool((s[:, :, :8] > fa.SOFTMAX_CLAMP).all()):
-            raise AssertionError("saturated case: rows 0-7 do not saturate")
-        compare("attn_bwd_packed saturated B=2 N=256 H=4 d=32", dtype,
-                [got[..., i * c:(i + 1) * c] for i in range(3)],
-                [want[..., i * c:(i + 1) * c] for i in range(3)])
-        zeros = want == 0
-        if not bool(zeros[:, :8, :c].all()) or not bool((got[zeros] == 0).all()):
-            raise AssertionError("attn_bwd_packed: saturated logits have a gradient")
+        # clamp, so their ds, and so their dq, is exactly 0 (bf16, f32)
+        if dtype != torch.float16:
+            b, n, h, d = 2, 256, 4, 32
+            c = h * d
+            qkv = randn((b, n, 3 * c), dtype)
+            qkv[:, :, c:2 * c] = qkv[:, :, c:2 * c].abs() + 0.5
+            qkv[:, :8, :c] = 32.0  # s >= 32 * 32**-0.5 * 32 * 0.5 > 80
+            dout = randn((b, n, c), dtype)
+            out, lse = fa.flash_attention_qkv_fwd(qkv, h)
+            got = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h)
+            s = (qkv[:, :, :c].float() * d**-0.5).reshape(b, n, h, d)
+            s = torch.einsum("bqhd,bkhd->bhqk", s, qkv[:, :, c:2 * c].float().reshape(b, n, h, d))
+            if not bool((s[:, :, :8] > fa.SOFTMAX_CLAMP).all()):
+                raise AssertionError("saturated case: rows 0-7 do not saturate")
+            compare("attn_bwd_packed saturated B=2 N=256 H=4 d=32", dtype,
+                    [got[..., i * c:(i + 1) * c] for i in range(3)],
+                    [want[..., i * c:(i + 1) * c] for i in range(3)])
+            zeros = want == 0
+            if not bool(zeros[:, :8, :c].all()) or not bool((got[zeros] == 0).all()):
+                raise AssertionError("attn_bwd_packed: saturated logits have a gradient")
         # K4, classic [B, H, N, d]: one fully-masked 128-key block (the
         # training slice's shapes), a sentinel tail, and random keys with an
         # empty batch row at head_dim 24, 80 and 128
         for b, n, d, kind in ((24, 1664, 64, "block"), (24, 512, 64, "block"),
                               (24, 512, 64, "tail"), (4, 1408, 24, "random"),
                               (4, 1664, 80, "random"), (4, 512, 128, "random")):
+            if dtype == torch.float16 and d != 80:
+                continue
             h = 3
             q, k, v, dout = (randn((b, h, n, d), dtype) for _ in range(4))
             if kind == "block":
@@ -710,25 +769,29 @@ def _hold_packed(label: str, forward: bool, got, want) -> float:
 
 
 def _time_packed(forward: bool, b: int, n: int, h: int, d: int, mask, gen,
-                 label: str) -> tuple:
+                 label: str, plain_batch: int | None = None) -> tuple:
     """K1 (``forward``) or K2 in bf16 on random qkv [b, n, 3 h d] with key
     mask ``mask`` ([b, n] bool or None), held against its plain version on
     these inputs first (``_hold_packed``, which raises): ((ms, plain_ms,
     library_ms, bound_ms, bound_by), (kernel's, SDPA's (min, median, max)
-    rounds), exponential floor ms or None). Work counts only valid keys
-    (masked key tiles are skipped); the backward's exponential floor counts
-    two passes, one exponential per valid score each."""
+    rounds), exponential floor ms or None). With ``plain_batch`` the plain
+    version runs on (and is held and timed on) the first ``plain_batch``
+    rows only, where b rows would not fit its score tensors. Work counts only
+    valid keys (masked key tiles are skipped); the backward's exponential
+    floor counts two passes, one exponential per valid score each."""
     import torch
 
     from avjepa_tpu_torch.ops import flash_attention as fa
 
+    pb = plain_batch or b
     qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
     valid = b * n if mask is None else int(mask.sum().item())
+    mask_pb = None if mask is None else mask[:pb]
     out, lse = fa.flash_attention_qkv_fwd(qkv, h, mask)
     q, k, v = fa._split_qkv(qkv, h)
     if forward:
         run = (lambda: fa.flash_attention_qkv_fwd(qkv, h, mask),
-               lambda: fa.flash_attention_qkv_ref(qkv, h, mask))
+               lambda: fa.flash_attention_qkv_ref(qkv[:pb], h, mask_pb))
         lib = _sdpa_fwd_ms(q, k, v, mask)
         # qkv read, out written; lse f32
         bound = _bound(4 * h * d * n * valid, 4 * b * n * h * d * 2 + b * h * n * 4)
@@ -736,12 +799,16 @@ def _time_packed(forward: bool, b: int, n: int, h: int, d: int, mask, gen,
     else:
         dout = torch.randn((b, n, h * d), generator=gen, device="cuda").to(torch.bfloat16)
         run = (lambda: fa.flash_attention_qkv_bwd(qkv, out, lse, dout, h, mask),
-               lambda: fa.flash_attention_qkv_bwd_ref(qkv, out, lse, dout, h, mask))
+               lambda: fa.flash_attention_qkv_bwd_ref(qkv[:pb], out[:pb], lse[:pb], dout[:pb],
+                                                     h, mask_pb))
         lib = _sdpa_bwd_ms(q, k, v, mask)
         # reads qkv, out, dO, lse, bias; writes dqkv
         bound = _bound(10 * h * d * n * valid, (8 * b * n * h * d) * 2 + b * h * n * 4 + b * n * 4)
         floor = _exp_floor_ms(2 * h * n * valid)
-    _hold_packed(label, forward, run[0](), run[1]())
+    got = run[0]()
+    got = (got[0][:pb], got[1][:pb]) if forward else got[:pb]
+    _hold_packed(label, forward, got, run[1]())
+    del got
     rounds = (_time_rounds(run[0], 20), lib)
     return (rounds[0][1], _time_ms(run[1], 3), lib[1], *bound), rounds, floor
 
@@ -833,8 +900,9 @@ def plain_packed_attention():
 
 
 # torch.profiler (CUPTI) on the H100 host can return a profile that holds no
-# device time: such a profile is taken again, this many times in all, and a
-# share of a device time that stays 0 prints "not measured"
+# device time: such a profile is taken again, this many times in all (each
+# retry printed), and a share of a device time that stays 0 prints "not
+# measured"
 PROFILE_TRIES = 3
 
 
@@ -842,11 +910,11 @@ def _cuda_events(fn, calls: int, want: str = ""):
     """torch.profiler over ``calls`` calls of ``fn``: (the profiler, its
     key_averages() CUDA events). Profiled again, up to PROFILE_TRIES times,
     while the kernels whose names hold ``want`` (all of them by default)
-    record no device time."""
+    record no device time; each retry is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -854,6 +922,9 @@ def _cuda_events(fn, calls: int, want: str = ""):
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         if sum(e.self_device_time_total for e in events if want in e.key) > 0:
             break
+        print(f"profile: attempt {attempt} of {PROFILE_TRIES} recorded no device time for "
+              f"{want or 'any kernel'} ({len(events)} CUDA events)"
+              + ("; taking it again" if attempt < PROFILE_TRIES else "; giving up"))
     return prof, events
 
 
@@ -861,31 +932,39 @@ def _share(part: float, whole: float) -> str:
     return f"{100 * part / whole:.1f}%" if whole > 0 else "not measured"
 
 
-def _profile(run, label: str, filename: str, steps: int = 2) -> float:
+def _kernel_ms(events, name: str, steps: int) -> list[tuple[str, float, int]]:
+    """(instance, device ms a call, launches a call) of each kernel whose
+    name holds ``name``, by template instance (``attn_fwd_wgmma_kernel<
+    __nv_bfloat16, true, 80>``), largest first."""
+    out = [(e.key[e.key.index(name):].split("(")[0], e.self_device_time_total / (1e3 * steps),
+            e.count // steps) for e in events if name in e.key]
+    return sorted(out, key=lambda x: -x[1])
+
+
+def _profile(run, label: str, filename: str, steps: int = 2) -> dict:
     """torch.profiler over ``steps`` calls of ``run``: the device time by
     kernel written to chiprun_out/<filename>; prints the device kernel ms per
-    call, the top kernels and the forward attention kernel's share. Returns
-    the device kernel ms per call."""
+    call, the top kernels, and the forward and backward attention kernels by
+    instance with their launches a call. Returns {"total": device kernel ms
+    a call, "fwd"/"bwd": [(instance, ms, launches), ...]}."""
     prof, events = _cuda_events(run, steps)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
     total = sum(e.self_device_time_total for e in events) / (1e3 * steps)
-    fwd = sum(e.self_device_time_total for e in events
-              if "attn_fwd" in e.key) / (1e3 * steps)
-    bwd = [e for e in events if "attn_bwd" in e.key]
-    bwd_ms = sum(e.self_device_time_total for e in bwd) / (1e3 * steps)
+    kernels = {"fwd": _kernel_ms(events, "attn_fwd", steps),
+               "bwd": _kernel_ms(events, "attn_bwd", steps)}
+    fwd = sum(ms for _, ms, _ in kernels["fwd"])
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(f"{label}: profile, {total:.1f} ms of device kernels per call; forward attention "
           f"kernel {fwd:.1f} ms ({_share(fwd, total)}); top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / (1e3 * steps):.2f} ms" for e in top))
-    if bwd:
-        print(f"{label}: backward attention kernels {bwd_ms:.1f} ms "
-              f"({_share(bwd_ms, total)}): " + "; ".join(
-                  f"{e.key[e.key.index('attn_bwd'):].split('(')[0]} "
-                  f"{e.self_device_time_total / (1e3 * steps):.2f} ms"
-                  f" ({e.count // steps} a call)" for e in bwd))
-    return total
+    for key, what in (("fwd", "forward"), ("bwd", "backward")):
+        if kernels[key]:
+            ms = sum(x for _, x, _ in kernels[key])
+            print(f"{label}: {what} attention kernels {ms:.1f} ms ({_share(ms, total)}): "
+                  + "; ".join(f"{name} {x:.2f} ms ({n} a call)" for name, x, n in kernels[key]))
+    return {"total": total, **kernels}
 
 
 def run_slice(workdir: str) -> dict:
@@ -2240,8 +2319,10 @@ def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: 
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     device = dist.init_distributed(device, backend=backend, timeout_s=600)
     try:
+        label = f"{data}x{fsdp_}x{tensor_}"
         cfg = load_config(_vith_cfg(workdir, batch // (world // tensor_), tpu={
-            "mesh_data": data, "mesh_fsdp": fsdp_, "mesh_tensor": tensor_}))
+            "mesh_data": data, "mesh_fsdp": fsdp_, "mesh_tensor": tensor_},
+            logging={"folder": os.path.join(workdir, f"vith16-{label}")}))
         h = pretrain.setup(cfg, device)
         h.loader.close()
         params = list(h.state.encoder.parameters())
@@ -2286,26 +2367,38 @@ def fsdp_rank(rank: int, world: int, port: int, workdir: str, data: int, fsdp_: 
             if rank == 0:
                 os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
                 with open(os.path.join(ROOT, "chiprun_out",
-                                       f"fsdp_{data}x{fsdp_}x{tensor_}_profile.txt"), "w") as f:
+                                       f"fsdp_{label}_profile.txt"), "w") as f:
                     f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                                       row_limit=40))
-        with open(os.path.join(workdir, f"fsdp-{data}x{fsdp_}x{tensor_}-rank{rank}.json"),
-                  "w") as f:
+        with open(os.path.join(workdir, f"fsdp-{label}-rank{rank}.json"), "w") as f:
             json.dump(result, f)
     finally:
         dist.shutdown()
 
 
-def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: str = "cuda",
-                      backend: str = "nccl", profile: bool = False, tensor_: int = 1,
-                      batch: int = 24, reference: str = None) -> list:
-    """``world`` fsdp_rank processes; their results, rank by rank."""
+def _free_ports(n: int) -> list:
+    """``n`` distinct free TCP ports of this host."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _start_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: str = "cuda",
+                      backend: str = "nccl", profile: bool = False, tensor_: int = 1,
+                      batch: int = 24, reference: str = None, port: int = None,
+                      cores: int = None) -> tuple:
+    """Start ``world`` fsdp_rank processes, sharing ``cores`` of the host's
+    cores (all by default); returns what _collect_fsdp_ranks takes."""
+    port = port or _free_ports(1)[0]
     label = f"{data}x{fsdp_}x{tensor_}"
+    threads = max(1, (cores or os.cpu_count() or 1) // world)
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import chip_smoke; chip_smoke.fsdp_rank({r}, {world}, {port}, "
                                f"{workdir!r}, {data}, {fsdp_}, {device!r}, {backend!r}, "
@@ -2313,8 +2406,13 @@ def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: s
                                f"reference={reference!r})"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         # the ranks share the host's cores, as main_distributed's do
-        env=dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world))))
+        env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
         for r in range(world)]
+    return workdir, label, procs
+
+
+def _collect_fsdp_ranks(workdir: str, label: str, procs: list) -> list:
+    """Wait for the ranks of _start_fsdp_ranks; their results, rank by rank."""
     outs = []
     try:
         for p in procs:
@@ -2330,10 +2428,16 @@ def _spawn_fsdp_ranks(workdir: str, world: int, data: int, fsdp_: int, device: s
     if any(p.returncode for p in procs):
         raise AssertionError(f"a {label} rank failed:\n" + "\n".join(o[-3000:] for o in outs))
     results = []
-    for r in range(world):
+    for r in range(len(procs)):
         with open(os.path.join(workdir, f"fsdp-{label}-rank{r}.json")) as f:
             results.append(json.load(f))
     return results
+
+
+def _spawn_fsdp_ranks(*args, **kwargs) -> list:
+    """``world`` fsdp_rank processes (_start_fsdp_ranks' arguments); their
+    results, rank by rank."""
+    return _collect_fsdp_ranks(*_start_fsdp_ranks(*args, **kwargs))
 
 
 def run_vith(workdir: str) -> dict:
@@ -2424,11 +2528,111 @@ def run_vith(workdir: str) -> dict:
             "times": times}
 
 
+# phase 13 (c): vith16_384.yaml (V-JEPA's ViT-H/16-384: 8 x 24 x 24 = 4608
+# tokens) as it stands, at the config's batch (27.1 GiB peak on an H100 80GB
+# HBM3, 700 W): an out-of-memory error fails the phase
+VITH384_BATCH = 24
+VITH384_ROUNDS = 2
+VITH384_PLAIN_BATCH = 2  # rows of the plain K1/K2 at 4608 tokens ([2, 16, N, N] f32 scores)
+
+
+def run_vith384(workdir: str) -> dict:
+    """Phase 13 (c): one vith16_384.yaml step as it stands (ViT-H/16 at
+    384^2, 16 frames: 4608 tokens; predictor 12 x 384; bf16; remat;
+    synthetic clips) at batch VITH384_BATCH: the first step's loss, the K1/K2
+    launches of a step, the step ms (CUDA events, VITH384_ROUNDS rounds of
+    one step), peak memory, one profiled step and its head_dim 80 forward
+    and backward attention kernels' ms and shares of the device time; then
+    K1/K2 at the step's d = 80 shapes (the target encoder, each context
+    pass with its key mask) held against their plain versions (on the first
+    VITH384_PLAIN_BATCH rows) and timed beside SDPA and their bounds."""
+    import gc
+
+    import torch
+
+    from avjepa_tpu_torch.config import load_config
+    from avjepa_tpu_torch.ops import flash_attention as fa
+    from avjepa_tpu_torch.train import pretrain
+    from avjepa_tpu_torch.train.step import train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    batch = VITH384_BATCH
+    cfg = load_config(_pretrain_cfg("vith16_384.yaml", workdir,
+                                    data={"batch_size": batch, "num_workers": 2}))
+    h = pretrain.setup(cfg, dev)
+    try:
+        video, audio, _, masks = next(iter(h.loader))
+    finally:
+        h.loader.close()
+    inputs = h.to_device(video, audio, masks)
+    del video, audio
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    first = train_step(h.state, h.sched, h.step_cfg, **inputs)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    n = h.cfg.layout().num_tokens
+    want = {"fwd_packed": VITH_K1_A_STEP, "bwd_packed": VITH_K1_A_STEP - 32, "fwd": 0, "bwd": 0}
+    if launches != want or not math.isfinite(first["loss"]) or n != 4608:
+        raise AssertionError(f"vith16_384: launches {launches} (want {want}), loss "
+                             f"{first['loss']}, tokens {n}")
+
+    def run():
+        train_step(h.state, h.sched, h.step_cfg, **inputs, full_metrics=False)
+
+    rounds = []
+    for _ in range(VITH384_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        rounds.append(start.elapsed_time(end))
+    ms = min(rounds)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vith16_384: ViT-H/16-384 step ({n} tokens) {ms:.1f} ms on a resident batch of "
+          f"{batch} (CUDA events, one step a round; rounds "
+          f"{', '.join(f'{x:.1f}' for x in rounds)}), {batch * 1000 / ms:.2f} clips/s; peak "
+          f"allocated {peak:.2f} GiB; first step loss {first['loss']:.6f}; launches a step "
+          f"{launches}; {card_line()}")
+    prof = _profile(run, "vith16_384: ViT-H/16-384 step", "vith384_profile.txt", steps=1)
+    shares = {}
+    for key in ("fwd", "bwd"):
+        shares[key] = sum(x for name, x, _ in prof[key] if name.endswith(", 80>"))
+    print(f"vith16_384: head_dim 80 attention kernels in the profiled step: forward "
+          f"{shares['fwd']:.1f} ms ({_share(shares['fwd'], prof['total'])}), backward "
+          f"{shares['bwd']:.1f} ms ({_share(shares['bwd'], prof['total'])}) of "
+          f"{prof['total']:.1f} ms of device kernels")
+
+    enc_idx = [idx.clone() for idx in inputs["enc_idx"]]
+    del run, h, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [("fwd_packed target", True, batch, n, None)]
+    for i, idx in enumerate(enc_idx):
+        shapes += [(f"{key} context {i}", fwd, batch, idx.shape[1], idx < n)
+                   for key, fwd in (("fwd_packed", True), ("bwd_packed", False))]
+    times = {}
+    for key, fwd, b, nk, mask in shapes:
+        label = f"{key} B={b} N={nk} H=16 d=80"
+        times[key], t_rounds, floor = _time_packed(fwd, b, nk, 16, 80, mask, gen,
+                                                   f"vith16_384 {label}", VITH384_PLAIN_BATCH)
+        _print_time(f"vith16_384 {label} (plain at B={VITH384_PLAIN_BATCH})", times[key],
+                    t_rounds, floor)
+    torch.cuda.empty_cache()
+    print(f"vith16_384: phase 13 (c) took {time.perf_counter() - t_phase:.1f} s")
+    return {"batch": batch, "step_ms": ms, "rounds": rounds, "peak_gib": peak,
+            "launches": launches, "d80_ms": shares, "total_ms": prof["total"], "times": times}
+
+
 def run_vith_fsdp(workdir: str, vith: dict) -> dict:
     """Phase 13 (b): two ranks on the one card over gloo, ViT-H at batch 12
     a rank on (a)'s global batch and initial weights, two steps each, under
     ``tpu.mesh_fsdp: 2`` (the models sharded over the two ranks) and under
-    ``tpu.mesh_data: 2``. After each step each fsdp rank's shards equal to
+    ``tpu.mesh_data: 2``, the two worlds at once. After each step each fsdp rank's shards equal to
     the bit the same slice of the data rank's weights, and the data ranks'
     whole weights equal each other; the fsdp step's loss equals the data
     step's and its grad norms are within FSDP_DATA_NORM_REL_TOL; the first
@@ -2436,8 +2640,14 @@ def run_vith_fsdp(workdir: str, vith: dict) -> dict:
     unsharded first step; K1/K2 launched; each rank's peak memory in both
     runs."""
     t_phase = time.perf_counter()
-    runs = {"fsdp": _spawn_fsdp_ranks(workdir, 2, 1, 2, "cuda:0", "gloo"),
-            "data": _spawn_fsdp_ranks(workdir, 2, 2, 1, "cuda:0", "gloo")}
+    # both worlds at once (four ranks, ~50 GiB of the card): the weights and
+    # losses they compare do not depend on what else runs on the card
+    ports, cores = _free_ports(2), (os.cpu_count() or 2) // 2
+    started = {"fsdp": _start_fsdp_ranks(workdir, 2, 1, 2, "cuda:0", "gloo", port=ports[0],
+                                         cores=cores),
+               "data": _start_fsdp_ranks(workdir, 2, 2, 1, "cuda:0", "gloo", port=ports[1],
+                                         cores=cores)}
+    runs = {name: _collect_fsdp_ranks(*run) for name, run in started.items()}
     for name, ranks in runs.items():
         r0, r1 = ranks
         print(f"vith16 {name} 2: transport {r0['backend']} over CUDA tensors, two ranks on one "
@@ -3119,6 +3329,7 @@ def main() -> None:
     if importlib.util.find_spec("avjepa_tpu_torch") is None:
         fail("avjepa_tpu_torch is not importable: run from the root of a checkout")
 
+    t_start = time.perf_counter()
     host_facts()
     toolchain()
     build()
@@ -3126,12 +3337,15 @@ def main() -> None:
     check_bwd_plain_delta()
     ln_errs, ln_launches = check_ln_kernels()
     times = {**time_kernels(), **time_ln_kernels()}
+    print(f"kernels: phases 1-3 and 8 took {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        t0 = time.perf_counter()
         run_slice(workdir)
         train = run_train(workdir)
         check_train_vs_plain(workdir)
         check_remat_bits(time_train_step(workdir, remat=True, rounds=3),
                          time_train_step(workdir, remat=False))
+        print(f"train: phases 4-7 took {time.perf_counter() - t0:.1f} s")
         run_fidelity()
         t0 = time.perf_counter()
         run_ingest(workdir)
@@ -3139,9 +3353,11 @@ def main() -> None:
         check_off_native(workdir)
         check_image_predictor()
         print(f"ingest: phase 15 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         run_avprediction(workdir, train["ckpt"])
         check_probe_vs_plain(workdir, train["ckpt"])
         time_probe_step(workdir, train["ckpt"])
+        print(f"avpred: phases 9-10 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         run_evals(workdir, train["ckpt"])
         print(f"evals: phase 11 took {time.perf_counter() - t0:.1f} s")
@@ -3151,6 +3367,7 @@ def main() -> None:
         print(f"dp: phase 12 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         run_vith_fsdp(workdir, run_vith(workdir))
+        run_vith384(workdir)
         print(f"vith16: phase 13 took {time.perf_counter() - t0:.1f} s")
         run_vith_tensor(workdir)
         run_resume(workdir)
@@ -3182,6 +3399,7 @@ def main() -> None:
             "launches": ln_launches[name], "max_abs_err": ln_errs[name], "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
         })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

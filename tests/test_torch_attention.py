@@ -39,6 +39,7 @@ def _mask(rng, b, n, p=0.7):
         (1, 128, 16, 24, False),  # predictor head_dim, padded inside the kernel
         (2, 200, 4, 32, False),   # ragged N: JAX pads to 256 and masks the pad
         (2, 200, 4, 32, True),
+        (1, 128, 8, 80, True),    # vit_huge's head_dim (8 heads of 80 pack)
     ],
 )
 def test_packed_ref_matches_jax(b, n, h, d, masked):

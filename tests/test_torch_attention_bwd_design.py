@@ -4,20 +4,23 @@ torch and held against the port's plain versions, which are the kernels'
 contracts (and are themselves held against the JAX package in
 tests/test_torch_attention_bwd.py).
 
-The emulation follows the kernels' two passes. Pass 1 (dk, dv) walks blocks
-of keys (64 here; the wgmma kernels take 128, which moves no result, as a
-masked key's p is 0 either way), skips a block whose keys are all masked
-or past N, adds no bias in a "full" block (every key below N with bias
-exactly 0), and streams the query tiles; pass 2 (dq) walks each query
-tile's list of 64-key tiles with the same skip and full rules. Both work in log2 units: nl = -(lse * log2e)
-per query row (-1e30 past N), K2 p = 2^min(x * log2e + nl, 80 * log2e + nl)
-with x = s (+ bias) and the clamp test x < 80 on the natural-units logit,
-K4 p = 2^(s * (scale * log2e) + nl) in one FMA (bias * log2e added in a
-partial tile). qs = T(q * scale) and ks = T(k * scale) are rounded once
-(K2); p and ds are rounded to the input type T before their products; sums
+The emulation follows the two passes of the wgmma kernels, which take
+every bf16/f16 head_dim up to 80 (d = 96 and 128 run mma.sync kernels,
+held against the plain versions on the card only). Pass 1 (dk, dv) walks
+blocks of 128 keys, skips a block whose keys are all masked or past N,
+adds no bias in a "full" block (every key below N with bias exactly 0),
+and streams 64-query tiles in the parts the kernel computes at a time (32
+queries at d = 64, whole tiles at d <= 32 and d = 80); pass 2 (dq) walks
+blocks of 128 queries over each block's list of 64-key tiles, with the
+same skip and full rules, in parts of 32 keys (64 at d = 64). Both work in
+log2 units: nl = -(lse * log2e) per query row (-1e30 past N), K2 p =
+2^min(x * log2e + nl, 80 * log2e + nl) with x = s (+ bias) and the clamp
+test x < 80 on the natural-units logit, K4 p = 2^(s * (scale * log2e) +
+nl) in one FMA (bias * log2e added in a partial tile). qs = T(q * scale)
+and ks = T(k * scale) are rounded once (K2); p and ds are rounded to the
+input type T before their products; sums
 are f32. Every product runs over d zero-padded as the kernels pad it (to
-32 or 64 on the wgmma path at d <= 64, to a multiple of 16 above), and the
-outputs are cut to d.
+32, 64 or 80: d = 80 is not padded), and the outputs are cut to d.
 Inputs are made with numpy from a seed. Tolerances: f32 1e-5 of max|plain|
 (2^x of a rounded log2-unit logit against exp of the natural one moves p by
 up to ~5e-6 relative near the clamp); bf16 chip_smoke.BWD_REL_TOL, the
@@ -30,9 +33,12 @@ import torch
 
 import chip_smoke
 from avjepa_tpu_torch.ops import flash_attention as fa
+from torch_cpu import kernel_constant, launch_width
 
-BK = 64   # keys a tile (pass 2) and a block (pass 1's skip rule)
-QT = 64   # queries a streamed tile (pass 1)
+KB = 128  # keys a block of pass 1 (the unit of its skip and full rules)
+QB = 128  # queries a block of pass 2
+BK = 64   # keys a listed tile of pass 2 (the unit of its skip and full rules)
+QT = 64   # queries a streamed tile of pass 1
 NEG_BIAS = -1e30
 F32 = torch.float32
 LOG2E = torch.tensor(1.4426950408889634, dtype=F32)
@@ -41,15 +47,26 @@ CLAMP2 = CLAMP * LOG2E  # f32 product, as in the kernel
 F32_REL_TOL = 1e-5
 
 
+def geometry(d):
+    """(DP, SUB1, SUB2) of the wgmma kernels at head_dim d, read from
+    attention_bwd.cu (launch_16bit and each kernel's SUB): d zero-padded to
+    DP in shared memory and registers, pass 1's query tiles computed SUB1
+    queries at a time, pass 2's key tiles SUB2 keys at a time."""
+    dp, launcher = launch_width("attention_bwd.cu", d)
+    assert launcher == "launch_wgmma", f"d = {d} runs {launcher}, not the wgmma kernels"
+    return (dp, *(kernel_constant("attention_bwd.cu", kernel, "SUB", DP=dp)
+                  for kernel in ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")))
+
+
 def _fma(a, b, c):
     """f32 fma: the exact product of two f32 (in f64) plus c, rounded once."""
     return (a.double() * b.double() + c.double()).float()
 
 
-def _key_tile(bias_row, n, k0):
-    """(bias of keys k0..k0+63 with NEG_BIAS past N, any valid, full)."""
-    keys = torch.arange(k0, k0 + BK)
-    bv = torch.full((BK,), NEG_BIAS, dtype=F32)
+def _key_tile(bias_row, n, k0, width=BK):
+    """(bias of keys k0..k0+width-1 with NEG_BIAS past N, any valid, full)."""
+    keys = torch.arange(k0, k0 + width)
+    bv = torch.full((width,), NEG_BIAS, dtype=F32)
     inside = keys < n
     bv[inside] = 0.0 if bias_row is None else bias_row[keys[inside]]
     return bv, bool((bv > -1.0).any()), bool((bv == 0.0).all())
@@ -64,6 +81,20 @@ def _rows(t, r0, rows, n, width):
     if hi > r0:
         out[:, :hi - r0, :d] = t[:, r0:hi].float()
     return out
+
+
+def _query_stats(nl, c2, delta, q0, rows, n):
+    """nl, c2 and delta of query rows q0..q0+rows-1 of [H, N], the padded
+    values past N (p = 0 there): [H, rows] each."""
+    h = nl.shape[0]
+    idx = torch.arange(q0, q0 + rows)
+    inside = idx < n
+    tnl = torch.full((h, rows), -1e30, dtype=F32)
+    tc2 = torch.full((h, rows), CLAMP2.item() - 1e30, dtype=F32)
+    tdl = torch.zeros((h, rows), dtype=F32)
+    tnl[:, inside], tc2[:, inside] = nl[:, idx[inside]], c2[:, idx[inside]]
+    tdl[:, inside] = delta[:, idx[inside]]
+    return tnl, tc2, tdl
 
 
 def _p_ds(s, dp, bias, nl, c2, delta, scale, clamped, full):
@@ -84,8 +115,7 @@ def emulate(q, k, v, dout, lse, delta, bias, scale, clamped):
     """Both passes on [B, H, N, d] tensors of one dtype T: (dq, dk, dv) in T."""
     dt = q.dtype
     b, h, n, d = q.shape
-    dk_pad = 32 if d <= 32 else 64 if d <= 64 else -(-d // 16) * 16
-    do_pad = dk_pad
+    dp_width, sub1, sub2 = geometry(d)
     sc = torch.tensor(scale, dtype=F32)
     rnd = lambda x: x.to(dt).float()  # noqa: E731 (rounding to T)
     grads = [torch.zeros((b, h, n, d), dtype=F32) for _ in range(3)]
@@ -96,57 +126,50 @@ def emulate(q, k, v, dout, lse, delta, bias, scale, clamped):
         # per query row: nl = -(lse * log2e), c2 = 80 * log2e + nl
         nl = -(lse[bi] * LOG2E)
         c2 = CLAMP2 + nl
-        # pass 1: dk, dv of each 64-key block over every query tile
-        for k0 in range(0, n, BK):
-            bv, any_valid, full = _key_tile(brow, n, k0)
+        # pass 1: dk, dv of each 128-key block over every 64-query tile,
+        # sub1 queries at a time
+        for k0 in range(0, n, KB):
+            bv, any_valid, full = _key_tile(brow, n, k0, KB)
             if not any_valid:
                 continue
-            kt, vt = _rows(k[bi], k0, BK, n, dk_pad), _rows(v[bi], k0, BK, n, dk_pad)
-            dkt = torch.zeros((h, BK, do_pad), dtype=F32)
-            dvt = torch.zeros((h, BK, do_pad), dtype=F32)
+            kt, vt = _rows(k[bi], k0, KB, n, dp_width), _rows(v[bi], k0, KB, n, dp_width)
+            dkt = torch.zeros((h, KB, dp_width), dtype=F32)
+            dvt = torch.zeros((h, KB, dp_width), dtype=F32)
             for q0 in range(0, n, QT):
-                qt = _rows(qs, q0, QT, n, dk_pad)
-                ot = _rows(dout[bi], q0, QT, n, dk_pad)
-                rows = torch.arange(q0, q0 + QT)
-                inside = rows < n
-                tnl = torch.full((h, QT), -1e30, dtype=F32)
-                tc2 = torch.full((h, QT), CLAMP2.item() - 1e30, dtype=F32)
-                tdl = torch.zeros((h, QT), dtype=F32)
-                tnl[:, inside], tc2[:, inside] = nl[:, rows[inside]], c2[:, rows[inside]]
-                tdl[:, inside] = delta[bi][:, rows[inside]]
-                st = kt @ qt.transpose(-1, -2)    # [H, keys, queries]
-                dpt = vt @ ot.transpose(-1, -2)
-                p, ds = _p_ds(st, dpt, bv[None, :, None], tnl[:, None], tc2[:, None],
-                              tdl[:, None], scale, clamped, full)
-                dvt += rnd(p) @ ot[..., :do_pad]   # p^T . dO: p is [H, keys, queries]
-                dkt += rnd(ds) @ qt[..., :do_pad]
-            hi = min(k0 + BK, n)
+                for p0 in range(q0, q0 + QT, sub1):
+                    qt = _rows(qs, p0, sub1, n, dp_width)
+                    ot = _rows(dout[bi], p0, sub1, n, dp_width)
+                    tnl, tc2, tdl = _query_stats(nl, c2, delta[bi], p0, sub1, n)
+                    st = kt @ qt.transpose(-1, -2)    # [H, keys, queries]
+                    dpt = vt @ ot.transpose(-1, -2)
+                    p, ds = _p_ds(st, dpt, bv[None, :, None], tnl[:, None], tc2[:, None],
+                                  tdl[:, None], scale, clamped, full)
+                    dvt += rnd(p) @ ot   # p^T . dO: p is [H, keys, queries]
+                    dkt += rnd(ds) @ qt
+            hi = min(k0 + KB, n)
             grads[1][bi][:, k0:hi] = dkt[:, :hi - k0, :d]
             grads[2][bi][:, k0:hi] = dvt[:, :hi - k0, :d]
-        # pass 2: dq of each query tile over its listed key tiles
-        for q0 in range(0, n, QT):
-            qt = _rows(qs, q0, QT, n, dk_pad)
-            ot = _rows(dout[bi], q0, QT, n, dk_pad)
-            rows = torch.arange(q0, q0 + QT)
-            inside = rows < n
-            tnl = torch.full((h, QT), -1e30, dtype=F32)
-            tc2 = torch.full((h, QT), CLAMP2.item() - 1e30, dtype=F32)
-            tdl = torch.zeros((h, QT), dtype=F32)
-            tnl[:, inside], tc2[:, inside] = nl[:, rows[inside]], c2[:, rows[inside]]
-            tdl[:, inside] = delta[bi][:, rows[inside]]
-            dqt = torch.zeros((h, QT, do_pad), dtype=F32)
+        # pass 2: dq of each 128-query block over its listed 64-key tiles,
+        # sub2 keys at a time
+        for q0 in range(0, n, QB):
+            qt = _rows(qs, q0, QB, n, dp_width)
+            ot = _rows(dout[bi], q0, QB, n, dp_width)
+            tnl, tc2, tdl = _query_stats(nl, c2, delta[bi], q0, QB, n)
+            dqt = torch.zeros((h, QB, dp_width), dtype=F32)
             for k0 in range(0, n, BK):
                 bv, any_valid, full = _key_tile(brow, n, k0)
                 if not any_valid:
                     continue
-                kt, vt = _rows(k[bi], k0, BK, n, dk_pad), _rows(v[bi], k0, BK, n, dk_pad)
-                kst = _rows(ks, k0, BK, n, dk_pad)
-                s = qt @ kt.transpose(-1, -2)     # [H, queries, keys]
-                dp = ot @ vt.transpose(-1, -2)
-                _, ds = _p_ds(s, dp, bv[None, None, :], tnl[..., None], tc2[..., None],
-                              tdl[..., None], scale, clamped, full)
-                dqt += rnd(ds) @ kst[..., :do_pad]
-            hi = min(q0 + QT, n)
+                for p0 in range(0, BK, sub2):
+                    kt = _rows(k[bi], k0 + p0, sub2, n, dp_width)
+                    vt = _rows(v[bi], k0 + p0, sub2, n, dp_width)
+                    kst = _rows(ks, k0 + p0, sub2, n, dp_width)
+                    s = qt @ kt.transpose(-1, -2)     # [H, queries, keys]
+                    dp = ot @ vt.transpose(-1, -2)
+                    _, ds = _p_ds(s, dp, bv[None, None, p0:p0 + sub2], tnl[..., None],
+                                  tc2[..., None], tdl[..., None], scale, clamped, full)
+                    dqt += rnd(ds) @ kst
+            hi = min(q0 + QB, n)
             grads[0][bi][:, q0:hi] = dqt[:, :hi - q0, :d]
     return tuple(g.to(dt) for g in grads)
 
@@ -184,6 +207,8 @@ CASES = [  # (b, h, n, d, mask)
     (2, 2, 192, 64, None),
     (2, 2, 130, 64, "prefix"),   # ragged N with a 2-key last tile
     (2, 2, 160, 80, "random"),   # vit_huge head_dim
+    (2, 2, 144, 80, "prefix"),   # ViT-H's compacted context: a valid prefix, ragged N
+    (1, 2, 136, 72, None),       # head_dim 72, zero-padded to 80
 ]
 
 
@@ -243,3 +268,12 @@ def test_saturated_logits(dtype):
     _check("saturated", dtype, [_packed(g) for g in got], want, False)
     assert torch.count_nonzero(got[0][:, :, :8]) == 0
     assert torch.count_nonzero(want[0][:, :8]) == 0
+
+
+@pytest.mark.parametrize("d,want", [(24, (32, 64, 32)), (64, (64, 32, 64)), (72, (80, 64, 32)),
+                                    (80, (80, 64, 32))])
+def test_geometry(d, want):
+    """The kernels' padding and parts by head_dim, as attention_bwd.cu
+    dispatches and splits them: d = 80 runs unpadded, on whole 64-query
+    tiles in pass 1 and in 32-key parts in pass 2."""
+    assert geometry(d) == want

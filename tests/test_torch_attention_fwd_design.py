@@ -11,7 +11,9 @@ units (K1: s * log2e after q was scaled and rounded to the input type; K3:
 s * (scale * log2e) folded with bias * log2e), p = 2^x with the clamp at
 80 * log2e (K1) or a running max in log2 units (K3), p rounded to the input
 type before the PV product, f32 sums, and lse written back in natural units
-with K3's exact sentinel for a row that saw no valid key. Inputs are made
+with K3's exact sentinel for a row that saw no valid key. Products run
+over head_dim zero-padded as the kernel pads it (``width``: to 32, 64, 80
+or 128; d = 80 is not padded), and out is cut to d. Inputs are made
 with numpy from a seed. Tolerances: f32 1e-5 of max|plain| (exp2 of a
 rounded s * log2e against exp of s moves p by up to ~5e-6 relative at the
 clamp); bf16 chip_smoke.TOL, the kernels' tolerance on the card.
@@ -23,6 +25,7 @@ import torch
 
 import chip_smoke
 from avjepa_tpu_torch.ops import flash_attention as fa
+from torch_cpu import launch_width
 
 BK = 64
 NEG_BIAS = -1e30
@@ -31,6 +34,17 @@ LOG2E = torch.tensor(1.4426950408889634, dtype=F32)
 LN2 = torch.tensor(0.6931471805599453, dtype=F32)
 CLAMP2 = torch.tensor(fa.SOFTMAX_CLAMP, dtype=F32) * LOG2E  # f32 product, as in the kernel
 F32_REL_TOL = 1e-5
+
+
+def width(d):
+    """The kernel's tile width DP at head_dim d, read from attention_fwd.cu's
+    launch_16bit: d zero-padded in shared memory and registers."""
+    return launch_width("attention_fwd.cu", d)[0]
+
+
+def _pad(t, dp):
+    """[..., d] zero-padded to [..., dp]."""
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
 
 
 def _key_tiles(bias_row, n):
@@ -56,20 +70,22 @@ def emulate(q, k, v, bias, scale, clamped):
     (out [B, H, N, d] in that dtype, lse [B, H, N] f32)."""
     dt = q.dtype
     b, h, n, d = q.shape
+    dp = width(d)
+    q, k, v = (_pad(t, dp) for t in (q, k, v))
     scale = torch.tensor(scale, dtype=F32)
     qs = (q.float() * scale).to(dt).float() if clamped else q.float()
     xs = LOG2E if clamped else scale * LOG2E
-    out = torch.zeros((b, h, n, d), dtype=F32)
+    out = torch.zeros((b, h, n, dp), dtype=F32)
     lse = torch.zeros((b, h, n), dtype=F32)
     for bi in range(b):
         m = torch.full((h, n), NEG_BIAS, dtype=F32)
         l = torch.zeros((h, n), dtype=F32)
-        acc = torch.zeros((h, n, d), dtype=F32)
+        acc = torch.zeros((h, n, dp), dtype=F32)
         for k0, full in _key_tiles(None if bias is None else bias[bi], n):
             keys = torch.arange(k0, k0 + BK)
             inside = keys < n
-            kt = torch.zeros((h, BK, d), dtype=dt)
-            vt = torch.zeros((h, BK, d), dtype=dt)
+            kt = torch.zeros((h, BK, dp), dtype=dt)
+            vt = torch.zeros((h, BK, dp), dtype=dt)
             kt[:, inside], vt[:, inside] = k[bi][:, keys[inside]], v[bi][:, keys[inside]]
             s = torch.matmul(qs[bi], kt.float().transpose(-1, -2))
             if full:
@@ -94,7 +110,7 @@ def emulate(q, k, v, bias, scale, clamped):
         else:
             lse[bi] = torch.where(m == NEG_BIAS, NEG_BIAS + torch.log(l),
                                   (m + torch.log2(l)) * LN2)
-    return out.to(dt), lse
+    return out[..., :d].to(dt), lse
 
 
 def _inputs(seed, b, h, n, d, masked, dtype, empty_row=False):
@@ -135,6 +151,8 @@ CASES = [  # (b, h, n, d, masked, empty_row)
     (2, 2, 200, 24, True, True),   # ragged N, predictor head_dim, an empty batch row
     (2, 2, 256, 80, True, False),  # vit_huge head_dim
     (2, 3, 130, 64, True, True),   # ragged N with a 2-key last tile
+    (2, 2, 130, 80, True, True),   # ViT-H head_dim, ragged N, an empty batch row
+    (1, 2, 136, 72, False, False),  # head_dim 72, zero-padded to 80
 ]
 
 
@@ -198,3 +216,10 @@ def test_skip_and_full_tiles():
     assert _key_tiles(bias, n) == [(0, False), (128, True), (192, False)]
     assert _key_tiles(None, 128) == [(0, True), (64, True)]
     assert _key_tiles(torch.full((n,), NEG_BIAS), n) == []
+
+
+@pytest.mark.parametrize("d,dp", [(24, 32), (64, 64), (72, 80), (80, 80), (96, 128)])
+def test_tile_width(d, dp):
+    """The kernel's dispatch pads d = 80 (ViT-H) no further; only 24, 72 and
+    96 pay for padding."""
+    assert width(d) == dp
