@@ -65,8 +65,9 @@ from avjepa_tpu_torch.utils.checkpoint import (
     save_train_state,
 )
 from avjepa_tpu_torch.utils.device import resolve_device
-from avjepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, StepTimer, get_logger
+from avjepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger
 from avjepa_tpu_torch.utils.monitoring import ResourceMonitor
+from avjepa_tpu_torch.utils.spans import count, span
 
 CSV_COLUMNS = (
     ("%d", "epoch"), ("%d", "itr"), ("%.5f", "loss"), ("%.5f", "loss-jepa"),
@@ -134,6 +135,7 @@ class TrainHandles:
     step_cfg: StepConfig
     loader: BatchLoader
     mask_collator: object
+    step_ms: float = 0.0  # the host ms of the last ``step``
 
     def to_device(self, video, audio, masks: list[MaskSet]):
         """Host batch -> device tensors: pixels cast to the compute dtype on
@@ -158,23 +160,31 @@ class TrainHandles:
         def put(a):
             if not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(np.ascontiguousarray(a))
+            if a.device.type == "cpu":
+                count("h2d_bytes", a.nbytes)
             return a.to(dev, non_blocking=True)
 
-        return dict(
-            video=put(video).to(dt),
-            audio=None if audio is None else put(audio).to(dt),
-            enc_masks=put(enc),
-            pred_masks=put(pred),
-            enc_idx=tuple(put(i) for i in idx) if idx is not None and self.cfg.tpu.compact_context
-            else None,
-            union_idx=put(union) if union is not None and self.cfg.tpu.compact_predictor
-            else None,
-        )
+        with span("train.h2d"):
+            return dict(
+                video=put(video).to(dt),
+                audio=None if audio is None else put(audio).to(dt),
+                enc_masks=put(enc),
+                pred_masks=put(pred),
+                enc_idx=tuple(put(i) for i in idx)
+                if idx is not None and self.cfg.tpu.compact_context else None,
+                union_idx=put(union) if union is not None and self.cfg.tpu.compact_predictor
+                else None,
+            )
 
     def step(self, video, audio, masks: list[MaskSet], full_metrics: bool = True) -> dict:
-        """One train step from a host batch; returns its metrics."""
-        return train_step(self.state, self.sched, self.step_cfg,
-                          **self.to_device(video, audio, masks), full_metrics=full_metrics)
+        """One train step from a host batch, the span ``train.step``; returns
+        its metrics and keeps the span's host ms in ``step_ms``."""
+        with span("train.step", step=self.state.step) as s:
+            metrics = train_step(self.state, self.sched, self.step_cfg,
+                                 **self.to_device(video, audio, masks),
+                                 full_metrics=full_metrics)
+        self.step_ms = s.ms
+        return metrics
 
 
 def setup(cfg: ExperimentConfig, device: torch.device) -> TrainHandles:
@@ -302,14 +312,13 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                     data_iter = iter(handles.loader)
                     video, audio, _, masks = next(data_iter)
                 full = (not cfg.tpu.light_metrics) or itr % cfg.logging.log_freq == 0
-                with StepTimer() as t:
-                    metrics = handles.step(video, audio, masks, full_metrics=full)
+                metrics = handles.step(video, audio, masks, full_metrics=full)
                 if full:
                     last_full = metrics
                 iter_ms = (time.perf_counter() - t_iter) * 1000
                 loss = metrics["loss"]
                 loss_meter.update(loss)
-                time_meter.update(t.elapsed_ms)
+                time_meter.update(handles.step_ms)
 
                 def _stat(key):
                     return float(metrics.get(key, last_full.get(key, np.nan)))
@@ -318,7 +327,7 @@ def run(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                     epoch + 1, itr, loss, metrics["loss_jepa"], metrics["loss_reg"],
                     metrics["enc_grad_norm"], metrics["pred_grad_norm"], _stat("enc_grad_avg"),
                     _stat("enc_grad_first_qkv"), _stat("enc_grad_last_qkv"),
-                    _stat("opt_mu_abs"), _stat("opt_nu_abs"), t.elapsed_ms, iter_ms, int(full),
+                    _stat("opt_mu_abs"), _stat("opt_nu_abs"), handles.step_ms, iter_ms, int(full),
                 )
                 if itr % cfg.logging.log_freq == 0:
                     logger.info(

@@ -56,6 +56,7 @@ from avjepa_tpu_torch.train.optim import (
     wd_at_step,
 )
 from avjepa_tpu_torch.train.state import TrainState
+from avjepa_tpu_torch.utils.spans import span
 from avjepa_tpu_torch.utils.tensors import masked_var
 
 
@@ -211,57 +212,61 @@ def train_step(state: TrainState, sched: ScheduleConfig, cfg: StepConfig, video,
     step = state.step
     lr, wd = lr_at_step(sched, step), wd_at_step(sched, step)
     state.optimizer.zero_grad(set_to_none=True)
-    loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
-                                        enc_idx, union_idx, draws)
-    loss.backward()
-    dist.all_reduce_grads([state.encoder, state.predictor], state.batch_group)
+    with span("train.forward"):
+        loss, loss_jepa, loss_reg = loss_fn(state, cfg, video, audio, enc_masks, pred_masks,
+                                            enc_idx, union_idx, draws)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.update"):
+        dist.all_reduce_grads([state.encoder, state.predictor], state.batch_group)
 
-    # per-model global norms from the per-parameter ones; the clip only
-    # after warmup (reference: train.py:518-520)
-    enc_g, pred_g = _grads(state.encoder), _grads(state.predictor)
-    splits = _splits(state.encoder, enc_g) + _splits(state.predictor, pred_g)
-    enc_n, pred_n = fsdp.leaf_norms([g for _, g in enc_g + pred_g], splits).split(
-        [len(enc_g), len(pred_g)])
-    enc_norm, pred_norm = torch.linalg.vector_norm(enc_n), torch.linalg.vector_norm(pred_n)
-    if cfg.clip_grad is not None and step // cfg.ipe > cfg.warmup_epochs:
-        enc_n = enc_n * clip_([g for _, g in enc_g], enc_norm, cfg.clip_grad)
-        pred_n = pred_n * clip_([g for _, g in pred_g], pred_norm, cfg.clip_grad)
+        # per-model global norms from the per-parameter ones; the clip only
+        # after warmup (reference: train.py:518-520)
+        enc_g, pred_g = _grads(state.encoder), _grads(state.predictor)
+        splits = _splits(state.encoder, enc_g) + _splits(state.predictor, pred_g)
+        enc_n, pred_n = fsdp.leaf_norms([g for _, g in enc_g + pred_g], splits).split(
+            [len(enc_g), len(pred_g)])
+        enc_norm, pred_norm = torch.linalg.vector_norm(enc_n), torch.linalg.vector_norm(pred_n)
+        if cfg.clip_grad is not None and step // cfg.ipe > cfg.warmup_epochs:
+            enc_n = enc_n * clip_([g for _, g in enc_g], enc_norm, cfg.clip_grad)
+            pred_n = pred_n * clip_([g for _, g in pred_g], pred_norm, cfg.clip_grad)
 
-    set_lr_wd(state.optimizer, lr, wd)
-    state.optimizer.step()
-    m = ema_at_step(sched, step)
-    ema_update_(state.target_encoder, state.encoder, m)
+        set_lr_wd(state.optimizer, lr, wd)
+        state.optimizer.step()
+        m = ema_at_step(sched, step)
+        ema_update_(state.target_encoder, state.encoder, m)
     state.step = step + 1
 
-    scalars = {"loss": loss, "loss_jepa": loss_jepa, "loss_reg": loss_reg,
-               "enc_grad_norm": enc_norm, "pred_grad_norm": pred_norm}
-    if full_metrics:
-        # the clipped gradients' statistics, as the JAX step logs them
-        enc_avg, enc_first, enc_last = grad_stats(enc_g, enc_n)
-        mu, nu = _abs_means(state.optimizer, state.encoder)
-        var = video.float().flatten(1).var(1, unbiased=False)
-        scalars.update({
-            "enc_grad_avg": enc_avg,
-            "enc_grad_first_qkv": enc_first,
-            "enc_grad_last_qkv": enc_last,
-            "pred_grad_avg": grad_stats(pred_g, pred_n)[0],
-            "opt_mu_abs": mu,
-            "opt_nu_abs": nu,
-            "input_var": var.mean(),
-            "input_var_min": var.min(),
-        })
-    # the losses and the input variance are means over the global batch, the
-    # input variance's min a min; the norms and the optimizer statistics
-    # already agree on every rank
-    means = [k for k in ("loss", "loss_jepa", "loss_reg", "input_var") if k in scalars]
-    scalars.update(zip(means, dist.reduce(torch.stack([scalars[k].float() for k in means]),
-                                          "mean", state.batch_group).unbind()))
-    if "input_var_min" in scalars:
-        scalars["input_var_min"] = dist.reduce(scalars["input_var_min"].float(), "min",
-                                               state.batch_group)
-    values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
-                          for v in scalars.values()]).tolist()  # one device sync
-    metrics = dict(zip(scalars, values))
-    metrics.update(lr=lr, wd=wd, ema=m,
-                   mask_sizes=enc_masks[:, 0, :].sum(1).float().tolist())
-    return metrics
+    with span("train.sync"):
+        scalars = {"loss": loss, "loss_jepa": loss_jepa, "loss_reg": loss_reg,
+                   "enc_grad_norm": enc_norm, "pred_grad_norm": pred_norm}
+        if full_metrics:
+            # the clipped gradients' statistics, as the JAX step logs them
+            enc_avg, enc_first, enc_last = grad_stats(enc_g, enc_n)
+            mu, nu = _abs_means(state.optimizer, state.encoder)
+            var = video.float().flatten(1).var(1, unbiased=False)
+            scalars.update({
+                "enc_grad_avg": enc_avg,
+                "enc_grad_first_qkv": enc_first,
+                "enc_grad_last_qkv": enc_last,
+                "pred_grad_avg": grad_stats(pred_g, pred_n)[0],
+                "opt_mu_abs": mu,
+                "opt_nu_abs": nu,
+                "input_var": var.mean(),
+                "input_var_min": var.min(),
+            })
+        # the losses and the input variance are means over the global batch, the
+        # input variance's min a min; the norms and the optimizer statistics
+        # already agree on every rank
+        means = [k for k in ("loss", "loss_jepa", "loss_reg", "input_var") if k in scalars]
+        scalars.update(zip(means, dist.reduce(torch.stack([scalars[k].float() for k in means]),
+                                              "mean", state.batch_group).unbind()))
+        if "input_var_min" in scalars:
+            scalars["input_var_min"] = dist.reduce(scalars["input_var_min"].float(), "min",
+                                                   state.batch_group)
+        values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
+                              for v in scalars.values()]).tolist()  # one device sync
+        metrics = dict(zip(scalars, values))
+        metrics.update(lr=lr, wd=wd, ema=m,
+                       mask_sizes=enc_masks[:, 0, :].sum(1).float().tolist())
+        return metrics

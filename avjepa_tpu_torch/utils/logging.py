@@ -1,8 +1,9 @@
-"""Logging, metering, and step timing (the port's copy of
+"""Logging and metering (the port's copy of
 ``avjepa_tpu/utils/logging.py``).
 
 Parity with reference src/utils/logging.py:14-118 (CSVLogger, AverageMeter,
-gpu_timer); grad/optimizer statistics are computed in train/step.py.
+gpu_timer: the span ``train.step``, ``utils/spans.py``); grad/optimizer statistics
+are computed in train/step.py.
 """
 
 from __future__ import annotations
@@ -10,7 +11,6 @@ from __future__ import annotations
 import logging
 import os
 import sys
-import time
 
 
 def get_logger(name: str | None = None, rank: int | None = None) -> logging.Logger:
@@ -75,15 +75,3 @@ class AverageMeter:
         self.count += n
         self.avg = self.sum / self.count
 
-
-class StepTimer:
-    """Wall-clock timer around a step that ends in a device synchronize (the
-    reference's gpu_timer, logging.py:14-31, times with CUDA events)."""
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed_ms = (time.perf_counter() - self.start) * 1000.0
-        return False
