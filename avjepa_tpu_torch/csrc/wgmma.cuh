@@ -1,12 +1,15 @@
 // wgmma (sm_90a) wrappers for the attention kernels: shared-memory matrix
 // descriptors and the tile layout they read (TileLayout), the fence /
-// commit / wait instructions, and the two products, for bf16 and f16 with
-// f32 accumulators:
+// commit / wait instructions, the mbarrier, TMA, named-barrier and
+// setmaxnreg instructions of the warp-specialised forward kernel, and the
+// two products, for bf16 and f16 with f32 accumulators:
 //   WgmmaSS<T>::n64:  d[32] (+)= A (64 x 16, shared) . B (64 x 16, shared,
 //                     K-major)^T                     S = Q . K^T
 //   WgmmaSS<T>::n32:  the same with 32 rows of B, d[16]
 //   WgmmaRS<T, N>::run: d[N/2] += A (64 x 16, registers) . B (16 x N, shared,
 //                     MN-major: the transpose flag)  O += P . V
+//   WgmmaRK<T>::n64:  d[32] (+)= A (64 x 16, registers) . B (64 x 16, shared,
+//                     K-major)^T                     S = Q . K^T, q held
 //   TileLayout<DP>::rs: WgmmaRS over a whole tile row of DP columns (at
 //                     DP = 80 an n64 and an n16 product into one d[40])
 // Accumulator layout of m64nNk16 (thread = 32 * warp + 4 * g + t): d[4j],
@@ -76,8 +79,84 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// --- mbarriers, TMA, named barriers and setmaxnreg (the warp-specialised
+// forward kernel). Barrier and shared addresses are shared-window addresses
+// (smem_addr); a tensor map is a __grid_constant__ kernel parameter.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// makes the mbarrier.init of this thread visible to the block (and to TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic before the phase ends
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (a new barrier is in
+// phase 0, so parity 1 passes at once)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; its bytes count against mbarrier `bar`'s
+// expected traffic (elements outside the tensor arrive as zeros)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensor_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads') over `count` threads: wait
+// for it, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// the executing warpgroup's register cap (all four warps together)
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
 template <typename T> struct WgmmaSS;
 template <typename T, int N> struct WgmmaRS;
+template <typename T> struct WgmmaRK;
 
 // Shared-memory layout of a [rows][DP] tile, as wgmma reads it: column
 // blocks of ROWB bytes a row (64 elements, or 32 when DP = 32), each block
@@ -170,6 +249,25 @@ template <> struct WgmmaSS<__nv_bfloat16> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct WgmmaRK<__nv_bfloat16> {
+  // d (+)= A . B^T, m64n64k16, A from registers, B K-major (no transpose);
+  // accumulate == 0 overwrites d
+  static __device__ __forceinline__ void n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
 };
 
@@ -272,6 +370,25 @@ template <> struct WgmmaSS<__half> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct WgmmaRK<__half> {
+  // d (+)= A . B^T, m64n64k16, A from registers, B K-major (no transpose);
+  // accumulate == 0 overwrites d
+  static __device__ __forceinline__ void n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
 };
 

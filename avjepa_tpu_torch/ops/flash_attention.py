@@ -53,14 +53,36 @@ LANE = 128
 # one where it launches its kernel and nowhere else (a backward launch runs
 # its kernel's two passes)
 LAUNCHES = {"fwd_packed": 0, "fwd": 0, "bwd_packed": 0, "bwd": 0}
+# forward launches (K1 and K3) since the last reset, by the design of the
+# kernel each launched (fwd_design)
+FWD_DESIGNS = {"ws": 0, "ring": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_HEAD_DIM = 128
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FWD_DESIGNS):
+        for name in counts:
+            counts[name] = 0
+
+
+def fwd_design(dtype: torch.dtype, head_dim: int, clamped: bool) -> str:
+    """The design of the forward kernel that a call launches, the rule of
+    attention_fwd.cu's ``uses_ws`` and ``launch_16bit``: "fma" for f32;
+    "ws" (warp-specialised: a TMA producer warp, an mbarrier ring and two
+    ping-pong consumer warpgroups) for K1's numerics (``clamped``) at a tile
+    width of 64 or 80 (32 < head_dim <= 80); else "ring" (the cp.async ring,
+    several blocks a SM)."""
+    if dtype == torch.float32:
+        return "fma"
+    return "ws" if clamped and 32 < head_dim <= 80 else "ring"
+
+
+def _count_fwd(kind: str, dtype: torch.dtype, head_dim: int) -> None:
+    """One forward launch of ``kind`` ("fwd_packed": K1, "fwd": K3)."""
+    LAUNCHES[kind] += 1
+    FWD_DESIGNS[fwd_design(dtype, head_dim, kind == "fwd_packed")] += 1
 
 
 def _heads_per_block(head_dim: int) -> int:
@@ -335,7 +357,7 @@ def flash_attention_qkv_fwd(
             b, n, num_heads, d, scale, torch.cuda.current_stream().cuda_stream,
         )
     check(lib, code, "attn_fwd_packed")
-    LAUNCHES["fwd_packed"] += 1
+    _count_fwd("fwd_packed", qkv.dtype, d)
     return out, lse
 
 
@@ -462,7 +484,7 @@ def flash_attention_fwd(
             b, h, n, d, scale, torch.cuda.current_stream().cuda_stream,
         )
     check(lib, code, "attn_fwd")
-    LAUNCHES["fwd"] += 1
+    _count_fwd("fwd", q.dtype, d)
     return out, lse
 
 

@@ -310,15 +310,18 @@ def kernel_resources(prefix: str) -> list[tuple[str, str]]:
 def print_resources(prefix: str = "attn_fwd") -> None:
     """Registers, shared memory and spills of each kernel whose name holds
     ``prefix`` (the forward attention kernels by default), from the build
-    log; raises if a head_dim 80 instance (``<..., 80>``) spills: those are
-    the ViT-H path's, designed to run two blocks a SM without spills."""
+    log; raises if a head_dim 80 or 64 instance (``<..., 80>``, ``<...,
+    64>``) spills: those are the ViT-H and ViT-L encoders' paths (K1's
+    warp-specialised ``<T, 64>`` and ``<T, 80>``), designed without
+    spills."""
     lines = kernel_resources(prefix)
     if not lines:
         print("  build log not found (library built by another run)")
     for label, line in lines:
         print(f"  ptxas {label}: {line}")
     spills = [(label, line) for label, line in lines
-              if label.endswith(", 80>") and re.search(r"[1-9]\d* bytes spill", line)]
+              if label.endswith((", 80>", ", 64>"))
+              and re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
         raise AssertionError(f"head_dim 80 kernels spill: {spills}")
 

@@ -4,7 +4,9 @@ torch and held against the port's plain versions, which are the kernels'
 contracts (and are themselves held against the JAX package in
 tests/test_torch_attention.py).
 
-The emulation follows the kernel's loop: the key tiles of 64 with the skip
+The emulation follows the kernel's loop, which both of its designs (the
+warp-specialised K1 at DP = 64 and 80, the cp.async ring elsewhere) run in
+the same order of sums: one 64-key tile a stage, in list order, with the skip
 rule (a tile whose keys are all masked or past N is never read), a "full"
 tile (every key below N with bias exactly 0) adding no bias, logits in log2
 units (K1: s * log2e after q was scaled and rounded to the input type; K3:
@@ -19,13 +21,15 @@ rounded s * log2e against exp of s moves p by up to ~5e-6 relative at the
 clamp); bf16 chip_smoke.TOL, the kernels' tolerance on the card.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from avjepa_tpu_torch.ops import flash_attention as fa
-from torch_cpu import launch_width
+from torch_cpu import kernel_source, launch_width
 
 BK = 64
 NEG_BIAS = -1e30
@@ -118,7 +122,14 @@ def _inputs(seed, b, h, n, d, masked, dtype, empty_row=False):
     x = rng.normal(size=(3, b, h, n, d)).astype(np.float32)
     q, k, v = (torch.from_numpy(t).to(dtype) for t in x)
     mask = None
-    if masked:
+    if masked == "prefix":
+        # the pretrain step's compacted keys: each row's valid keys a prefix
+        # whose end falls inside a tile (the last listed tile is partial, the
+        # tiles after it are skipped)
+        lengths = rng.integers(n // 2, n - 8, size=(b, 1))
+        lengths[0] = n - 37
+        mask = torch.from_numpy(np.arange(n)[None, :] < lengths)
+    elif masked:
         m = rng.random((b, n)) < 0.6
         m[:, 64:128] = False  # one fully-masked 64-key tile: skipped
         if empty_row:
@@ -153,6 +164,8 @@ CASES = [  # (b, h, n, d, masked, empty_row)
     (2, 3, 130, 64, True, True),   # ragged N with a 2-key last tile
     (2, 2, 130, 80, True, True),   # ViT-H head_dim, ragged N, an empty batch row
     (1, 2, 136, 72, False, False),  # head_dim 72, zero-padded to 80
+    (1, 2, 1664, 64, False, False),  # ViT-L's encoders: 26 full tiles
+    (2, 1, 1152, 80, "prefix", False),  # vith16_384's context: a partial last tile
 ]
 
 
@@ -223,3 +236,55 @@ def test_tile_width(d, dp):
     """The kernel's dispatch pads d = 80 (ViT-H) no further; only 24, 72 and
     96 pay for padding."""
     assert width(d) == dp
+
+
+@pytest.mark.parametrize("dtype,d,clamped,design", [
+    (torch.bfloat16, 64, True, "ws"),
+    (torch.float16, 64, True, "ws"),
+    (torch.bfloat16, 80, True, "ws"),
+    (torch.float16, 80, True, "ws"),
+    (torch.bfloat16, 24, True, "ring"),
+    (torch.float16, 24, True, "ring"),
+    (torch.bfloat16, 128, True, "ring"),
+    (torch.bfloat16, 64, False, "ring"),  # K3 keeps the ring
+    (torch.bfloat16, 80, False, "ring"),
+    (torch.float32, 64, True, "fma"),
+    (torch.float32, 80, False, "fma"),
+])
+def test_fwd_design_rule(dtype, d, clamped, design):
+    """The forward kernel's design by what the call is: K1 in 16 bits at
+    head_dim 64 and 80 is warp-specialised, d = 24 and 128 and K3 take the
+    ring, f32 the FMA kernel."""
+    assert fa.fwd_design(dtype, d, clamped) == design
+
+
+def test_fwd_design_rule_is_the_kernels():
+    """fwd_design and attention_fwd.cu's dispatch agree at every 16-bit
+    head_dim: warp-specialised exactly where launch_16bit's tile width is
+    one that uses_ws names, for K1 alone."""
+    rule = re.search(r"constexpr bool uses_ws\(bool clamped, int dp\) \{\s*return clamped && "
+                     r"\(([^;]+)\);", kernel_source("attention_fwd.cu")).group(1)
+    ws_widths = {int(w) for w in re.findall(r"dp == (\d+)", rule)}
+    assert ws_widths == {64, 80}
+    for d in range(8, 129, 8):
+        for clamped in (True, False):
+            want = "ws" if clamped and width(d) in ws_widths else "ring"
+            assert fa.fwd_design(torch.bfloat16, d, clamped) == want, (d, clamped)
+
+
+def test_fwd_designs_count_as_launches():
+    """FWD_DESIGNS counts each forward launch by its design, as LAUNCHES
+    counts it by kernel, and resets with it; a CPU call (the plain version)
+    counts in neither."""
+    fa.reset_launches()
+    qkv = torch.zeros((1, 64, 3 * 64), dtype=torch.bfloat16)
+    fa.flash_attention_qkv_fwd(qkv, 1)
+    assert not any(fa.LAUNCHES.values()) and not any(fa.FWD_DESIGNS.values())
+    for kind, dtype, d in (("fwd_packed", torch.bfloat16, 64), ("fwd_packed", torch.bfloat16, 80),
+                           ("fwd_packed", torch.bfloat16, 24), ("fwd", torch.float16, 64),
+                           ("fwd_packed", torch.float32, 64)):
+        fa._count_fwd(kind, dtype, d)
+    assert fa.LAUNCHES == {"fwd_packed": 4, "fwd": 1, "bwd_packed": 0, "bwd": 0}
+    assert fa.FWD_DESIGNS == {"ws": 2, "ring": 2, "fma": 1}
+    fa.reset_launches()
+    assert not any(fa.LAUNCHES.values()) and not any(fa.FWD_DESIGNS.values())

@@ -11,8 +11,9 @@ holds the pass 1 and pass 2 splits of K2 at head_dim 80 that were measured
 against the one kept). Each tree's process prints the registers and spills of
 its head_dim 80 attention kernels (ptxas, from the build log), holds K1 and K2
 against their plain versions (bf16) at the shapes of SHAPES (ViT-H's d = 80
-shapes of vith16.yaml's step, vith16_384's 4608 tokens, and three d <= 64
-shapes of the ViT-L step; K4, the classic backward, at the vit_tiny step's
+shapes of vith16.yaml's step, vith16_384's 4608 tokens and its context
+encoder's, and d <= 64 shapes of the ViT-L step and the predictor; K4, the
+classic backward, at the vit_tiny step's
 d = 64 and at d = 80), and times them there (CUDA events, median of
 chip_smoke.TIME_ROUNDS rounds, and the kernels' device time by
 torch.profiler) beside SDPA and the bound. The inputs come from one seed, so
@@ -37,8 +38,11 @@ SHAPES = (
     ("K2 vith16 context 0", False, 24, 512, 16, 80, "prefix"),
     ("K2 vith16 context 1", False, 24, 128, 16, 80, "prefix"),
     ("K1 vith16_384 target", True, 4, 4608, 16, 80, None),
+    ("K1 vith16_384 context 0", True, 24, 1152, 16, 80, "prefix"),
+    ("K1 vith16_384 context 1", True, 24, 384, 16, 80, "prefix"),
     ("K2 vith16_384 context", False, 4, 4608, 16, 80, "prefix"),
     ("K1 d=64 ViT-L target", True, 24, 1664, 16, 64, None),
+    ("K1 d=24 vith16 predictor", True, 48, 1280, 16, 24, None),
     ("K2 d=64 ViT-L context", False, 24, 512, 16, 64, "tail"),
     ("K2 d=24 ViT-L predictor", False, 48, 1408, 16, 24, "random"),
     ("K4 d=64 vit_tiny context", False, 24, 512, 3, 64, "tail"),
